@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. Setup: TF32 off, the card's name and power limit (``nvidia-smi``), the
+   CUDA kernels built from ``src/repro_torch/kernels/csrc`` into
+   ``build/kernels`` (one ``nvcc`` per source, all started together).
+2. Kernel phase: each kernel against its plain PyTorch version on the
+   card at full width, in bf16 and fp32, with its time, the plain
+   version's time, one library call's time (a yardstick the port never
+   calls) and the least time the card could take (``bound_ms``).
+3. Engine phase: full-width OLMo-1B (random weights from a seed) served
+   through ``Engine``: 12 ragged requests through 8 slots; the launch
+   counters show that every decode step went through both kernels.
+4. End-to-end check: one decode state stepped with the kernels and with
+   ``kernels="plain"`` on copies of the same cache.
+
+Any failure exits non-zero.  The line before the last is the ``kernels``
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the repository beside it, it exits
+non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; fp32 outside them
+REPS = 21
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def device_ms(calls, reps: int = REPS) -> float:
+    """Device time of one call, in ms: ``calls`` (closures of the same
+    function on different copies of its inputs, together larger than the
+    50 MB L2, so that every call finds its inputs cold as the decode loop
+    does) are captured once into a CUDA graph; the median over ``reps``
+    replays between two CUDA events, divided by ``len(calls)``.  The
+    graph removes the host's launch cost, which eager timing would add
+    wherever it exceeds the device time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del graph
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / len(calls)
+
+
+def eager_ms(fn, reps: int = REPS) -> float:
+    """Time of one eager call as the host issues it (launch cost
+    included), in ms: ``reps`` calls back to back between two events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    name = str(dtype).removeprefix("torch.")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_ulp(x):
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+# ---------------------------------------------------------------------------
+# Kernel phase
+# ---------------------------------------------------------------------------
+
+# Decode attention: outputs are convex combinations of order-1 values,
+# rounded once to the output dtype.  The kernel's online softmax and the
+# plain version's two-pass softmax round differently in fp32, which can
+# move that one bf16 rounding: bf16 atol = rtol = 1.6e-2 (2 bf16 ulps at
+# magnitude 1); fp32 atol = rtol = 1e-5 (sums of 1024 terms in another
+# order).
+DECODE_TOL = {"bfloat16": 1.6e-2, "float32": 1e-5}
+
+
+def decode_case(gen, b, s, h, kv, dh, dtype, pos):
+    import torch
+
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    q, kn, vn = rnd(b, 1, h, dh), rnd(b, kv, dh), rnd(b, kv, dh)
+    kc, vc = rnd(b, s, kv, dh), rnd(b, s, kv, dh)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kv_len = pos + 1
+    # Row 0 is a fresh admission (pos 0) over a poisoned cache: NaN in K
+    # beyond kv_len (masked before the softmax) and 1e4 in V (multiplied
+    # by an exact 0 in the plain version; a NaN there would make the plain
+    # version itself NaN).
+    kc[0, 1:] = float("nan")
+    vc[0, 1:] = 1e4
+    return (q, kn, vn, kc, vc), pos, kv_len
+
+
+def run_decode_attention(gen, results):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import fused_decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    b, s, dh, copies = 8, 1024, 128, 4
+    pos = [0, s - 1, 517, 128, 64, 900, 1000, 3]
+    main = None
+    for label, h, kv in (("olmo-1b", 16, 16), ("qwen3-32b GQA", 64, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = [decode_case(gen, b, s, h, kv, dh, dtype, pos) for _ in range(copies)]
+            args, p, n = cases[0]
+            got = fused_decode_attention(*args, pos=p, kv_len=n)
+            want = decode_attention_ref(*args, pos=p, kv_len=n)
+            torch.cuda.synchronize()
+            tol = DECODE_TOL[str(dtype).removeprefix("torch.")]
+            err = (got.float() - want.float()).abs()
+            rel = (err / want.float().abs().clamp_min(1e-6)).max().item()
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (err <= tol + tol * want.float().abs()).all())
+            kernel = [lambda c=c: fused_decode_attention(*c[0], pos=c[1], kv_len=c[2])
+                      for c in cases]
+            plain = [lambda c=c: decode_attention_ref(*c[0], pos=c[1], kv_len=c[2])
+                     for c in cases]
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            host_ms = eager_ms(kernel[0])
+            # yardstick: SDPA over each copy's updated cache, (B, H, S, dh) views
+            idx = torch.arange(b, device="cuda")
+            sdpa_kw = {"enable_gqa": True} if h != kv else {}
+            library = []
+            for (q, kn, vn, kc, vc), p_, n_ in cases:
+                kc[idx, p_.long()] = kn  # the copies are not needed any more
+                vc[idx, p_.long()] = vn
+                mask = (torch.arange(s, device="cuda")[None, :] < n_[:, None])[:, None, None, :]
+                library.append(lambda q=q, kc=kc, vc=vc, mask=mask: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=mask, **sdpa_kw))
+            lib_ms = device_ms(library)
+            rows = n.clamp(max=s).sum().item()
+            nbytes = args[0].element_size() * (2 * b * h * dh + 2 * kv * dh * rows) + 8 * b
+            bms, by = bound_ms(nbytes, 4 * h * dh * rows, dtype)
+            print(f"decode_attention {label} B={b} S={s} H={h} KV={kv} dh={dh} {dtype} "
+                  f"(valid rows {rows}): max_abs_err={err.max().item():.3e} "
+                  f"max_rel_err={rel:.3e} tol={tol:g} {'ok' if ok else 'FAILED'}; device "
+                  f"kernel {ms:.4f} ms (eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+            if not ok:
+                fail(f"decode_attention {label} {dtype} disagrees with its plain version")
+            if main is None:
+                main = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            del cases, kernel, plain, library
+    results["decode_attention"] = main
+
+
+def emit_errors(got, want, dtype):
+    """Tolerance per row, scaled by the row's largest |logit|: an element
+    of the normalised x may round to bf16 one ulp apart on the two sides,
+    which moves a logit by an amount of the order of the row's scale, and
+    each logit is then rounded to x's dtype.  bf16: 2 bf16 ulps of the
+    row's largest |logit|; fp32: 1e-4 of it (d = 2048 products summed in
+    another order)."""
+    import torch
+
+    top = want.abs().amax(dim=-1, keepdim=True)
+    allowed = 2 * bf16_ulp(top) if dtype == torch.bfloat16 else 1e-4 * top
+    err = (got - want).abs()
+    return err, bool((err <= allowed).all()), (err / allowed).max().item()
+
+
+def run_emit(gen, results):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.emit_norm_logits.ops import emit_norm_logits
+    from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
+
+    b, d, v, eps = 8, 2048, 50304, 1e-5
+    main = None
+    # OLMo-1B's own case (layernorm, tied) first
+    for norm, tied in (("layernorm_nonparam", True), ("layernorm_nonparam", False),
+                       ("rmsnorm", True), ("rmsnorm", False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+            shape, std = ((v, d), 0.02) if tied else ((d, v), d**-0.5)
+            w = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+            scale = (torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1.0
+                     if norm == "rmsnorm" else None)
+            kw = dict(norm=norm, scale=scale, eps=eps, tied=tied)
+            got = emit_norm_logits(x, w, **kw)
+            want = emit_norm_logits_ref(x, w, **kw)
+            torch.cuda.synchronize()
+            err, ok, worst = emit_errors(got, want, dtype)
+            rel = (err / want.abs().clamp_min(1e-6)).max().item()
+            # the head (>= 206 MB) is larger than the L2: one copy stays cold
+            ms = device_ms([lambda: emit_norm_logits(x, w, **kw)])
+            plain_ms = device_ms([lambda: emit_norm_logits_ref(x, w, **kw)])
+            host_ms = eager_ms(lambda: emit_norm_logits(x, w, **kw))
+            wt = w.T if tied else w
+
+            def library():
+                xn = (F.layer_norm(x, (d,), eps=eps) if norm == "layernorm_nonparam"
+                      else F.rms_norm(x.float(), (d,), scale, eps=eps).to(dtype))
+                return xn @ wt
+
+            lib_ms = device_ms([library])
+            nbytes = x.element_size() * (b * d + v * d) + 4 * b * v + (4 * d if scale is not None else 0)
+            bms, by = bound_ms(nbytes, 2 * b * d * v, dtype)
+            print(f"emit_norm_logits {norm} tied={tied} B={b} d={d} V={v} {dtype}: "
+                  f"max_abs_err={err.max().item():.3e} max_rel_err={rel:.3e} "
+                  f"worst/allowed={worst:.3f} {'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms "
+                  f"(eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, norm+matmul "
+                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})",
+                  flush=True)
+            if not ok:
+                fail(f"emit_norm_logits {norm} tied={tied} {dtype} disagrees with its plain version")
+            if main is None:
+                main = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            del x, w
+    results["emit_norm_logits"] = main
+
+
+# ---------------------------------------------------------------------------
+# Engine phase and end-to-end check
+# ---------------------------------------------------------------------------
+
+PROMPT_LENS = [17, 600, 128, 255, 64, 383, 511, 31, 129, 450, 200, 97]
+
+
+def run_engine(cfg, params, launches):
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    scfg = ServeConfig(max_batch=8, max_len=1024, prefill_chunk=128, max_new_tokens=32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
+
+    warm = Engine(params, cfg, scfg, device="cuda")  # library handles, first launches
+    warm.submit(prompts[0], 2)
+    warm.run_until_drained()
+    torch.cuda.synchronize()
+
+    eng = Engine(params, cfg, scfg, device="cuda")
+    spent = {"_decode": [], "_prefill": []}  # host-clock seconds per call, synchronised
+
+    def timed(name):
+        fn = getattr(eng, name)
+
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()  # the engine reads the logits on the host next anyway
+            spent[name].append(time.perf_counter() - t)
+            return out
+
+        setattr(eng, name, call)
+
+    timed("_decode")
+    timed("_prefill")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p) for p in prompts]
+    ttft = {}
+    for _ in range(10_000):
+        eng.step()
+        now = time.perf_counter()
+        for r in reqs:
+            if r.out_tokens and r.uid not in ttft:
+                ttft[r.uid] = now - t0
+        if not eng.queue and all(r is None for r in eng.active):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(K.LAUNCHES)
+
+    steps = eng.decode_steps
+    if not all(r.done and r.status == "ok" for r in reqs):
+        fail("not every request finished")
+    bad = [t for r in reqs for t in r.out_tokens if not 0 <= t < cfg.vocab_size]
+    if bad:
+        fail(f"tokens outside [0, {cfg.vocab_size}): {bad[:5]}")
+    if any(len(r.out_tokens) != scfg.max_new_tokens for r in reqs):
+        fail("a request stopped short of its budget")
+    want = {"decode_attention": steps * cfg.num_layers, "emit_norm_logits": steps}
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want} for {steps} decode steps")
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    t = sorted(ttft.values())
+    print(f"engine olmo-1b full width ({cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, "
+          f"{cfg.dtype}): {len(reqs)} requests, prompts {min(PROMPT_LENS)}-{max(PROMPT_LENS)}, "
+          f"{tokens} tokens, {steps} decode steps in {wall:.3f} s: {tokens / wall:.1f} tok/s; "
+          f"TTFT p50 {statistics.median(t) * 1e3:.1f} ms, max {t[-1] * 1e3:.1f} ms; "
+          f"launches {launches}", flush=True)
+    dec, pre = spent["_decode"], spent["_prefill"]
+    print(f"engine time: {len(dec)} decode steps, p50 {statistics.median(dec) * 1e3:.2f} ms, "
+          f"total {sum(dec):.3f} s; {len(pre)} prefill calls (chunk 128), p50 "
+          f"{statistics.median(pre) * 1e3:.2f} ms, total {sum(pre):.3f} s; rest (host "
+          f"bookkeeping, sampling, slot copies) {wall - sum(dec) - sum(pre):.3f} s", flush=True)
+    return eng
+
+
+def run_end_to_end(cfg, params):
+    """One decode state of the served model, stepped with the kernels and
+    with ``kernels="plain"`` on copies of the same cache, in fp32 (params
+    and cache upcast) and in bf16 (as served).
+
+    fp32: the emit tolerance, 1e-4 of each row's largest |logit|.
+    bf16: every layer's attention output is rounded to bf16 from fp32
+    values that differ in their last bits between the kernel and the
+    plain version, and the residual stream carries those one-ulp
+    differences through 16 layers: allowed 8 bf16 ulps of each row's
+    largest |logit|.  In both, greedy tokens must agree wherever the
+    plain top-1 beats its top-2 by more than twice the tolerance."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import map_tree
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    eng = Engine(params, cfg, ServeConfig(max_batch=8, max_len=1024, prefill_chunk=128,
+                                          max_new_tokens=500), device="cuda")
+    rng = np.random.default_rng(1)
+    for n in PROMPT_LENS[:8]:
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n))
+    for _ in range(3):
+        eng.step()
+    tokens = torch.tensor([r.out_tokens[-1] for r in eng.active], device="cuda")
+    lengths = torch.tensor(eng.lengths, device="cuda")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = map_tree(lambda t: t.to(torch.float32) if dtype == torch.float32 else t, params)
+        c_cfg = cfg.with_overrides(dtype=dtype)
+
+        def cache():
+            return {n: {k: t.to(dtype, copy=True) for k, t in blk.items()}
+                    for n, blk in eng.cache.items()}
+
+        got, _ = T.decode_step(p, cache(), c_cfg, tokens=tokens, lengths=lengths, kernels="cuda")
+        want, _ = T.decode_step(p, cache(), c_cfg, tokens=tokens, lengths=lengths,
+                                kernels="plain")
+        torch.cuda.synchronize()
+        top = want.abs().amax(dim=-1, keepdim=True)
+        tol = 8 * bf16_ulp(top) if dtype == torch.bfloat16 else 1e-4 * top
+        err = (got - want).abs()
+        worst = (err / tol).max().item()
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol.squeeze(-1)
+        same = got.argmax(-1) == want.argmax(-1)
+        print(f"end-to-end decode_step kernels vs plain, {dtype} (B=8, lengths "
+              f"{lengths.tolist()}): max_abs_err={err.max().item():.3e} worst/allowed="
+              f"{worst:.3f}; greedy tokens equal in {int(same.sum())}/8 rows, "
+              f"{int(decided.sum())} rows with a decided top-1", flush=True)
+        if worst > 1:
+            fail(f"end-to-end {dtype} logits with the kernels disagree with the plain path")
+        if not bool(same[decided].all()):
+            fail(f"end-to-end {dtype} greedy tokens differ where the plain top-1 is decided")
+        del p
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
+    try:
+        from repro_torch import kernels as K
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.params import init_params
+    except ImportError as e:
+        fail(f"the repro_torch package is not beside this script ({e})")
+
+    # 1. Setup
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, stdin=subprocess.DEVNULL, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    t = time.perf_counter()
+    logs = K.build()
+    print(f"built {sorted(logs) or 'nothing (up to date)'} in {time.perf_counter() - t:.1f} s", flush=True)
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    # 2. Kernel phase
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    results: dict[str, dict] = {}
+    run_decode_attention(gen, results)
+    run_emit(gen, results)
+    torch.cuda.empty_cache()
+
+    # 3. Engine phase
+    cfg = get_config("olmo-1b")
+    params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")).params
+    launches: dict[str, int] = {}
+    run_engine(cfg, params, launches)
+
+    # 4. End-to-end check
+    run_end_to_end(cfg, params)
+
+    source = {
+        "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention/kernel.py:34"),
+        "emit_norm_logits": ("src/repro_torch/kernels/csrc/emit_norm_logits.cu",
+                             "src/repro/kernels/emit_norm_logits/kernel.py:45"),
+    }
+    record = [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], **results[name]}
+        for name, (src, replaces) in source.items()
+    ]
+    print(json.dumps({"kernels": record}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

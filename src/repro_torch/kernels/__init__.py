@@ -1,0 +1,187 @@
+"""Hopper kernel library, its build helper and the per-op dispatch registry.
+
+Each op lives in its own package (``ref.py`` = the plain PyTorch version
+that follows the JAX ``ref.py`` op for op, ``ops.py`` = the wrapper that
+checks its operands and launches the kernel); the CUDA sources are under
+``csrc/``:
+
+* ``decode_attention`` -- the serving hot path: the new K/V row is
+  substituted into the cache page on chip and one query row is read
+  against it, so no updated cache page is written before the read.
+* ``emit_norm_logits`` -- decode-emit epilogue: final norm + LM-head
+  product in one pass over vocab tiles.
+
+Model code selects implementations through :func:`get_impl` driven by the
+``kernels`` config knob (``"plain" | "cuda" | "auto"``).  ``"auto"``
+resolves to ``"cuda"`` for tensors on a CUDA device and to ``"plain"``
+on the CPU; ``"cuda"`` without a CUDA device raises.  A wrapper given a
+CPU tensor runs the plain version; given a CUDA tensor it launches its
+kernel or raises -- it never falls back.
+
+Kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/kernels/`` at the repo root (content-addressed, so an edited
+source is rebuilt) and loaded with ``ctypes``; each C entry point
+returns ``cudaGetLastError()`` after its launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+KERNEL_MODES = ("plain", "cuda", "auto")
+
+# op -> (module path, attr) of the CUDA wrapper and of the plain version
+# (same call signature).
+_CUDA_IMPLS = {
+    "decode_attention": (
+        "repro_torch.kernels.decode_attention.ops", "fused_decode_attention"
+    ),
+    "emit_norm_logits": (
+        "repro_torch.kernels.emit_norm_logits.ops", "emit_norm_logits"
+    ),
+}
+_PLAIN_IMPLS = {
+    "decode_attention": (
+        "repro_torch.kernels.decode_attention.ref", "decode_attention_ref"
+    ),
+    "emit_norm_logits": (
+        "repro_torch.kernels.emit_norm_logits.ref", "emit_norm_logits_ref"
+    ),
+}
+
+OPS = tuple(_CUDA_IMPLS)
+
+# Kernel launches per op, counted by each wrapper where it launches its
+# kernel (never for a CPU tensor's plain version): the proof that a run
+# went through the kernels.
+LAUNCHES = {op: 0 for op in OPS}
+
+
+def reset_launches() -> None:
+    for op in LAUNCHES:
+        LAUNCHES[op] = 0
+
+
+def resolve_mode(mode: str, device: str | torch.device) -> str:
+    """Validate the ``kernels`` knob and collapse ``auto`` for ``device``."""
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"kernels={mode!r}; expected one of {KERNEL_MODES}")
+    device = torch.device(device)
+    if mode == "auto":
+        return "cuda" if device.type == "cuda" else "plain"
+    if mode == "cuda" and device.type != "cuda":
+        raise ValueError(f"kernels='cuda' needs tensors on a CUDA device, not {device}")
+    return mode
+
+
+def get_impl(op: str, mode: str = "auto"):
+    """The implementation of ``op`` under the ``kernels`` mode.
+
+    ``"cuda"`` returns the kernel's wrapper and raises when no CUDA
+    device is present (it never hands back the plain version);
+    ``"plain"`` returns the PyTorch version with the same signature;
+    ``"auto"`` is ``"cuda"`` when a CUDA device is present.  Imports
+    lazily.
+    """
+    if mode == "auto":
+        mode = "cuda" if torch.cuda.is_available() else "plain"
+    elif mode not in KERNEL_MODES:
+        raise ValueError(f"kernels={mode!r}; expected one of {KERNEL_MODES}")
+    if mode == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the {op!r} CUDA kernel needs a CUDA device; none is available")
+    table = _CUDA_IMPLS if mode == "cuda" else _PLAIN_IMPLS
+    if op not in table:
+        raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
+    module_path, attr = table[op]
+    return getattr(importlib.import_module(module_path), attr)
+
+
+# ---------------------------------------------------------------------------
+# Build: nvcc -> shared library with a plain C interface -> ctypes
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("decode_attention", "emit_norm_logits")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to; the name hashes the source and
+    the flags, so an edited source never loads a stale library."""
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every library of ``names`` not built yet: one ``nvcc`` per
+    source, all started together.  Returns each new build's compiler
+    output (``-Xptxas -v``: registers, shared memory, spills); raises
+    with the output of every source that failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        started[name] = (proc, tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in started.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(f"{name}.cu: nvcc exited {proc.returncode}\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of library ``name``, built on first
+    use.  Pointers and the stream must be ``ctypes.c_void_p`` in
+    ``argtypes``, or ctypes would pass them as 32-bit ints."""
+    key = (name, symbol)
+    if key not in _FUNCS:
+        build([name])
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[key] = fn
+    return _FUNCS[key]
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if code:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {code}")

@@ -1,0 +1,77 @@
+"""Wrapper of the fused emit CUDA kernel (``csrc/emit_norm_logits.cu``).
+
+A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
+the kernel on the current stream or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NORMS = {"rmsnorm": 0, "layernorm_nonparam": 1}
+_ARGTYPES = (
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p]
+)
+SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+
+
+def emit_norm_logits(
+    x: torch.Tensor,  # (B, 1, d)
+    w: torch.Tensor,  # (d, V) untied head | (V, d) tied embedding
+    *,
+    norm: str,
+    scale=None,
+    eps: float = 1e-5,
+    tied: bool = False,
+) -> torch.Tensor:
+    """Final norm + logits of one decode position: fp32 ``(B, V)``, each
+    logit rounded to x's dtype (the same function as ``ref.py``)."""
+    if norm not in _NORMS:
+        raise ValueError(norm)
+    if x.device.type == "cpu":
+        return emit_norm_logits_ref(x, w, norm=norm, scale=scale, eps=eps, tied=tied)
+    if x.device.type != "cuda":
+        raise ValueError(f"emit runs on CPU or CUDA tensors, not {x.device}")
+    b, s, d = x.shape
+    v = w.shape[0] if tied else w.shape[1]
+    if s != 1:
+        raise ValueError(f"x must be (B, 1, d), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must both be float32 or bfloat16, got {x.dtype}, {w.dtype}")
+    if tuple(w.shape) != ((v, d) if tied else (d, v)):
+        raise ValueError(f"w {tuple(w.shape)} does not match d={d} (tied={tied})")
+    vec = 16 // x.element_size()
+    if d % vec or v % vec:
+        raise ValueError(f"d={d} and V={v} must be multiples of {vec}")
+    if norm == "rmsnorm":
+        if scale is None or scale.dtype != torch.float32 or tuple(scale.shape) != (d,):
+            raise TypeError("rmsnorm needs a float32 scale of shape (d,)")
+        operands = (("x", x), ("w", w), ("scale", scale))
+    else:
+        operands = (("x", x), ("w", w))
+    for name, t in operands:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    # the normalised x, its rows padded to a multiple of 8 and by 32
+    # elements each, beside at most 20 KB of the kernels' own
+    if -(-b // 8) * 8 * (d + 32) * x.element_size() + 20 * 1024 > SMEM_LIMIT:
+        raise ValueError(f"B={b}, d={d}: the normalised x does not fit the kernel's shared memory")
+    out = torch.empty((b, v), dtype=torch.float32, device=x.device)
+    fn = K.kernel_function("emit_norm_logits", "emit_norm_logits", _ARGTYPES)
+    code = fn(
+        _DTYPES[x.dtype], _NORMS[norm], int(tied),
+        x.data_ptr(), w.data_ptr(), scale.data_ptr() if norm == "rmsnorm" else None,
+        out.data_ptr(), b, d, v, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    K.check_launch("emit_norm_logits", code)
+    K.LAUNCHES["emit_norm_logits"] += 1
+    return out

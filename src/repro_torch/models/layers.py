@@ -1,0 +1,222 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, gated MLP.
+
+PyTorch port of ``repro.models.layers``: the same functions on the same
+parameter dicts and layouts, op for op (fp32 upcasts and casts back at
+the same places).  The JAX package's sharding hooks (``constrain*``)
+have no counterpart on one device and are dropped.  Of the attention
+implementations only ``dense`` is ported so far; ``chunked`` and the
+flash kernel are later slices (ROADMAP A2, B3).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import ParamSpec
+
+PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_layout(dim: int, stacked: tuple[int, ...] = ()):
+    axes = ("layers",) * len(stacked) + ("embed",)
+    return {"scale": ParamSpec(stacked + (dim,), axes, init="ones", dtype=torch.float32)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"]).to(dtype)
+
+
+def layernorm_nonparam(x, eps: float = 1e-5):
+    """OLMo's non-parametric LayerNorm (no scale/bias), biased variance."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return ((x - mu) * torch.rsqrt(var + eps)).to(dtype)
+
+
+def make_norm_layout(norm: str, dim: int, stacked: tuple[int, ...] = ()):
+    if norm == "rmsnorm":
+        return rmsnorm_layout(dim, stacked)
+    if norm == "layernorm_nonparam":
+        return {}
+    raise ValueError(norm)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: (..., S) int."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (dh/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+
+def attention_dense(
+    q, k, v, *, causal: bool, q_offset=0, kv_len=None, softmax_scale=None
+):
+    """Full-score attention.  q:(B,Sq,H,dh) k,v:(B,Sk,KV,dh) -> (B,Sq,H,dh).
+
+    ``q_offset``: absolute position of q[0] (decode: Sq=1, offset=pos).
+    ``kv_len``: number of valid KV positions (rest masked; cache padding),
+    an int or a (B,)/(B,1) tensor.  A row with no valid key yields 0.
+    """
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if h % kv:
+        raise ValueError(f"num_heads {h} is not a multiple of kv heads {kv}")
+    scale = softmax_scale or dh**-0.5
+    qg = q.reshape(b, sq, kv, h // kv, dh)
+    scores = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float()) * scale
+    kv_pos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        q_pos = torch.arange(sq, device=q.device) + q_offset
+        mask &= kv_pos[None, :] <= q_pos[:, None]
+    scores = scores.masked_fill(~mask[None, :, None, None, :], -torch.inf)
+    if kv_len is not None:
+        klen = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)  # (B,1)|(1,1)
+        kmask = kv_pos[None, :] < klen  # (B,S)
+        scores = scores.masked_fill(~kmask[:, None, None, None, :], -torch.inf)
+    probs = torch.softmax(scores, dim=-1)
+    # Rows that are fully masked produce NaN; scrub (decode prefix).
+    probs = torch.where(torch.isnan(probs), 0.0, probs)
+    out = torch.einsum("bqkgs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + rope + qk-norm)
+# ---------------------------------------------------------------------------
+
+
+def attn_layout(cfg, stacked: tuple[int, ...] = ()):
+    d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ax = ("layers",) * len(stacked)
+    out = {
+        "wq": ParamSpec(stacked + (d, h, dh), ax + ("embed", "heads", "head_dim"), dtype=cfg.dtype),
+        "wk": ParamSpec(stacked + (d, kv, dh), ax + ("embed", "kv_heads", "head_dim"), dtype=cfg.dtype),
+        "wv": ParamSpec(stacked + (d, kv, dh), ax + ("embed", "kv_heads", "head_dim"), dtype=cfg.dtype),
+        "wo": ParamSpec(stacked + (h, dh, d), ax + ("heads", "head_dim", "embed"), dtype=cfg.dtype),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamSpec(stacked + (h, dh), ax + ("heads", "head_dim"), init="zeros", dtype=cfg.dtype)
+        out["bk"] = ParamSpec(stacked + (kv, dh), ax + ("kv_heads", "head_dim"), init="zeros", dtype=cfg.dtype)
+        out["bv"] = ParamSpec(stacked + (kv, dh), ax + ("kv_heads", "head_dim"), init="zeros", dtype=cfg.dtype)
+    if cfg.qk_norm:
+        out["q_norm"] = ParamSpec(stacked + (dh,), ax + ("head_dim",), init="ones", dtype=torch.float32)
+        out["k_norm"] = ParamSpec(stacked + (dh,), ax + ("head_dim",), init="ones", dtype=torch.float32)
+    return out
+
+
+def _maybe_qk_norm(params, q, k, eps):
+    if "q_norm" in params:
+        q = rmsnorm({"scale": params["q_norm"]}, q, eps)
+        k = rmsnorm({"scale": params["k_norm"]}, k, eps)
+    return q, k
+
+
+def attn_project_qkv(params, x, cfg, positions):
+    """x: (B,S,d) -> q,k,v with rope + optional bias/qk-norm."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q, k = _maybe_qk_norm(params, q, k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(params, ctx):
+    return torch.einsum("bshk,hkd->bsd", ctx, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_layout(cfg, stacked: tuple[int, ...] = ()):
+    d, f = cfg.d_model, cfg.d_ff
+    ax = ("layers",) * len(stacked)
+    return {
+        "w_gate": ParamSpec(stacked + (d, f), ax + ("embed", "ffn"), dtype=cfg.dtype),
+        "w_up": ParamSpec(stacked + (d, f), ax + ("embed", "ffn"), dtype=cfg.dtype),
+        "w_down": ParamSpec(stacked + (f, d), ax + ("ffn", "embed"), dtype=cfg.dtype),
+    }
+
+
+def mlp(params, x):
+    gate = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+    up = torch.einsum("bsd,df->bsf", x, params["w_up"])
+    act = F.silu(gate.float()).to(x.dtype) * up
+    return torch.einsum("bsf,fd->bsd", act, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_layout(cfg):
+    axes = ("vocab", None) if cfg.tie_embeddings else ("vocab_table", "embed_table")
+    return {
+        "embedding": ParamSpec(
+            (cfg.vocab_size, cfg.d_model), axes,
+            init="embed", init_scale=0.02, dtype=cfg.dtype,
+        )
+    }
+
+
+def head_layout(cfg):
+    if cfg.tie_embeddings:
+        return {}
+    return {
+        "w": ParamSpec(
+            (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), dtype=cfg.dtype
+        )
+    }
+
+
+def logits(head_params, embed_params, x, cfg):
+    """LM head in the model dtype, upcast to fp32 after the product."""
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, embed_params["embedding"]).float()
+    return torch.einsum("bsd,dv->bsv", x, head_params["w"]).float()
+
+
+def embed_lookup(table, tokens):
+    """Token embedding lookup (gather)."""
+    return table[tokens]

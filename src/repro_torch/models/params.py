@@ -1,0 +1,115 @@
+"""Declarative parameter layouts (PyTorch port of ``repro.models.params``).
+
+A model declares its parameters as a nested dict of :class:`ParamSpec`
+(shape + logical axis names + init).  ``init_params`` draws real
+parameters from one seeded ``torch.Generator``; ``params_from_numpy``
+takes the JAX package's parameter tree (as numpy arrays) instead, so the
+port and the reference run on identical weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+PyTree = Any
+
+# numpy dtype names of the JAX package's leaves -> torch dtypes.  Read by
+# name so a bf16 leaf needs no ``ml_dtypes`` import.
+_TORCH_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float32": torch.float32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
+    dtype: Any = torch.bfloat16
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed
+    init_scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical_axes):
+            raise ValueError(
+                f"shape {self.shape} vs logical_axes {self.logical_axes}"
+            )
+
+
+def map_tree(fn, tree: PyTree) -> PyTree:
+    """Apply ``fn`` to every leaf of a nested dict, keys in sorted order
+    (the order ``jax.tree`` flattens a dict in)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def _init_scale(spec: ParamSpec) -> float:
+    if spec.init == "embed":
+        return spec.init_scale
+    if spec.init == "fan_in":
+        # For stacked layers (leading 'layers'/'stage' axis) fan-in excludes it.
+        non_stack = [
+            d
+            for d, ax in zip(spec.shape, spec.logical_axes)
+            if ax not in ("layers", "stage", "experts")
+        ]
+        fan_in = max(1, int(np.prod(non_stack[:-1]))) if len(non_stack) > 1 else 1
+        return spec.init_scale / np.sqrt(fan_in)
+    return spec.init_scale  # normal
+
+
+def init_params(
+    layout: PyTree, seed: int = 0, device: str | torch.device = "cuda"
+) -> PyTree:
+    """Random parameters for ``layout``, drawn leaf by leaf (sorted keys)
+    from one ``torch.Generator`` seeded with ``seed`` on ``device``.
+
+    Same shapes, dtypes and fan-in scales as the JAX package's
+    ``init_params``; the numbers differ (another generator).  Use
+    :func:`params_from_numpy` for weights identical to the reference's.
+    """
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def one(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        x = torch.randn(
+            spec.shape, generator=gen, dtype=torch.float32, device=device
+        ) * _init_scale(spec)
+        return x.to(spec.dtype)
+
+    return map_tree(one, layout)
+
+
+def params_from_numpy(tree: PyTree, device: str | torch.device = "cuda") -> PyTree:
+    """The weight bridge: a parameter tree of numpy arrays -> tensors.
+
+    ``tree`` is the JAX package's ``init_params`` output with each leaf
+    turned into a numpy array.  Each leaf is upcast with
+    ``.astype(np.float32)`` (which works on bf16 arrays without
+    importing ``ml_dtypes``) and cast back to its own dtype on
+    ``device``; bf16 -> fp32 -> bf16 is lossless, so the converted
+    weights are bit-identical to the reference's.
+    """
+    device = resolve_device(device)
+
+    def one(leaf) -> torch.Tensor:
+        name = str(leaf.dtype)
+        if name not in _TORCH_DTYPES:
+            raise TypeError(f"unsupported parameter dtype {name}")
+        t = torch.from_numpy(np.ascontiguousarray(leaf.astype(np.float32)))
+        return t.to(device=device, dtype=_TORCH_DTYPES[name])
+
+    return map_tree(one, tree)
+

@@ -1,0 +1,451 @@
+"""Decoder (PyTorch port of ``repro.models.transformer``), attention path.
+
+Layers are grouped into a repeating *period*; parameters are stacked
+over ``num_layers / period`` groups, and where the JAX package scans the
+stack this port runs a Python loop over the groups.
+
+Ported so far: dense decoders whose blocks are self-attention + dense
+MLP (olmo-1b, qwen1.5-4b, qwen3-32b, internlm2-20b, ...).  Mamba, MoE
+and cross-attention blocks raise ``NotImplementedError`` (ROADMAP A9).
+
+Step kinds:
+  * ``forward``      -- logits for full sequences.
+  * ``prefill_step`` -- one prompt chunk written into the KV cache.
+  * ``decode_step``  -- one token per sequence against the KV cache.
+
+Unlike the JAX package's functional ``.at[].set`` updates, the KV cache
+is updated **in place**: ``prefill_step`` writes the chunk's rows and
+``decode_step`` one row per sequence into the cache tensors it is given,
+and returns that same cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import get_impl, resolve_mode
+from repro_torch.models import layers as L
+
+PyTree = Any
+
+_NOT_PORTED = "is not ported yet (ROADMAP A9: remaining model families)"
+
+
+# ---------------------------------------------------------------------------
+# Block plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    mixer: str  # "attn" | "mamba" | "cross_attn"
+    ffn: str    # "dense" | "moe" | "none"
+
+
+def effective_period(cfg: ArchConfig) -> int:
+    period = cfg.pattern_period
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.every_k_layers)
+    if cfg.cross_attn_every > 0:
+        period = math.lcm(period, cfg.cross_attn_every)
+    return period
+
+
+def block_plans(cfg: ArchConfig) -> list[BlockPlan]:
+    period = effective_period(cfg)
+    plans = []
+    for i in range(period):
+        mixer = cfg.block_pattern[i % cfg.pattern_period]
+        if (
+            cfg.cross_attn_every > 0
+            and i % cfg.cross_attn_every == cfg.cross_attn_every - 1
+        ):
+            mixer = "cross_attn"
+        if cfg.d_ff == 0 and cfg.moe is None:
+            ffn = "none"
+        elif cfg.moe is not None and (
+            i % cfg.moe.every_k_layers == cfg.moe.every_k_layers - 1
+        ):
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        plans.append(BlockPlan(mixer, ffn))
+    return plans
+
+
+def _check_ported(cfg: ArchConfig, plans: list[BlockPlan]) -> None:
+    if cfg.embeds_input:
+        raise NotImplementedError(f"embeddings input ({cfg.name}) {_NOT_PORTED}")
+    for plan in plans:
+        if plan.mixer != "attn":
+            raise NotImplementedError(f"{plan.mixer!r} blocks ({cfg.name}) {_NOT_PORTED}")
+        if plan.ffn not in ("dense", "none"):
+            raise NotImplementedError(f"{plan.ffn!r} blocks ({cfg.name}) {_NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+
+def model_layout(cfg: ArchConfig) -> PyTree:
+    period = effective_period(cfg)
+    if cfg.num_layers % period != 0:
+        raise ValueError(f"{cfg.num_layers=} not divisible by period {period}")
+    stacked = (cfg.num_layers // period,)
+    plans = block_plans(cfg)
+    _check_ported(cfg, plans)
+
+    blocks: dict[str, PyTree] = {}
+    for i, plan in enumerate(plans):
+        blk: dict[str, PyTree] = {
+            "norm_mixer": L.make_norm_layout(cfg.norm, cfg.d_model, stacked),
+            "attn": L.attn_layout(cfg, stacked),
+        }
+        if plan.ffn != "none":
+            blk["norm_ffn"] = L.make_norm_layout(cfg.norm, cfg.d_model, stacked)
+            blk["mlp"] = L.mlp_layout(cfg, stacked=stacked)
+        blocks[f"block{i}"] = blk
+
+    return {
+        "embed": L.embed_layout(cfg),
+        "blocks": blocks,
+        "final_norm": L.make_norm_layout(cfg.norm, cfg.d_model, ()),
+        "head": L.head_layout(cfg),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Cache layout (decode)
+# ---------------------------------------------------------------------------
+
+
+def cache_layout(cfg: ArchConfig, batch: int, max_len: int) -> PyTree:
+    """Abstract cache: dict mirroring blocks, leaves ``meta`` tensors.
+
+    Attention: K/V (groups, B, Smax, KV, dh).
+    """
+    groups = cfg.num_layers // effective_period(cfg)
+    plans = block_plans(cfg)
+    _check_ported(cfg, plans)
+    shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        f"block{i}": {
+            "k": torch.empty(shape, dtype=cfg.dtype, device="meta"),
+            "v": torch.empty(shape, dtype=cfg.dtype, device="meta"),
+        }
+        for i in range(len(plans))
+    }
+
+
+def init_cache(
+    cfg: ArchConfig, batch: int, max_len: int, device: str | torch.device = "cuda"
+) -> PyTree:
+    """A zeroed KV cache on ``device``; ``prefill_step`` and
+    ``decode_step`` update it in place."""
+    device = resolve_device(device)
+    return {
+        name: {k: torch.zeros_like(t, device=device) for k, t in blk.items()}
+        for name, blk in cache_layout(cfg, batch, max_len).items()
+    }
+
+
+def _group(tree: PyTree, g: int) -> PyTree:
+    """Layer group ``g`` of a group-stacked tree, as views (writes to a
+    cache view land in the stacked cache)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _num_groups(params) -> int:
+    blk = next(iter(params["blocks"].values()))
+    return blk["attn"]["wq"].shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg, params, x):
+    if cfg.norm == "rmsnorm":
+        return L.rmsnorm(params, x, cfg.norm_eps)
+    return L.layernorm_nonparam(x, cfg.norm_eps)
+
+
+def _self_attn(
+    params, x, cfg, *, positions, cache=None, cache_pos=None, kv_len=None,
+    kernels="plain",
+):
+    """Self-attention; with cache: decode or chunked prefill.
+    Returns (out, (k, v)) with this call's K/V.
+
+    Decode (S==1): ``cache_pos`` is (B,) int32 per-sequence write
+    positions; the new K/V row of each sequence is written in place at
+    its position.  ``kernels="cuda"`` reads attention through the fused
+    decode-attention kernel (new row substituted on chip, cache read
+    before the write); ``"plain"`` writes the row first and runs
+    ``attention_dense`` over the cache.
+
+    Chunked prefill (S>1): ``cache_pos`` is an int chunk offset; the
+    chunk is written in place at [pos, pos+S) -- which must lie inside
+    the cache (the JAX package's ``dynamic_update_slice`` would clamp
+    the offset instead) -- and attends causally to the cache.
+    """
+    q, k, v = L.attn_project_qkv(params, x, cfg, positions)
+    if cache is None:
+        return L.attn_out(params, L.attention_dense(q, k, v, causal=True)), (k, v)
+    bsz, s = x.shape[:2]
+    ck, cv = cache["k"], cache["v"]
+    if s == 1:
+        rows_k = k[:, 0].to(ck.dtype)
+        rows_v = v[:, 0].to(cv.dtype)
+        idx = torch.arange(bsz, device=x.device)
+        pos = cache_pos.long()
+        if kernels == "cuda":
+            # einsum may hand back permuted views; the kernel takes
+            # contiguous operands (a no-op where they already are)
+            ctx = get_impl("decode_attention", "cuda")(
+                q.contiguous(), rows_k.contiguous(), rows_v.contiguous(),
+                ck, cv, pos=cache_pos, kv_len=kv_len,
+            )
+            ck[idx, pos] = rows_k
+            cv[idx, pos] = rows_v
+            return L.attn_out(params, ctx), (k, v)
+        ck[idx, pos] = rows_k
+        cv[idx, pos] = rows_v
+        causal, q_offset = False, 0
+    else:
+        if cache_pos + s > ck.shape[1]:
+            raise ValueError(
+                f"prefill chunk [{cache_pos}, {cache_pos + s}) overruns the "
+                f"cache of {ck.shape[1]} rows"
+            )
+        ck[:, cache_pos : cache_pos + s] = k.to(ck.dtype)
+        cv[:, cache_pos : cache_pos + s] = v.to(cv.dtype)
+        causal, q_offset = True, cache_pos
+    ctx = L.attention_dense(
+        q, ck, cv, causal=causal, q_offset=q_offset, kv_len=kv_len,
+    )
+    return L.attn_out(params, ctx), (k, v)
+
+
+def _apply_group(
+    group_params, x, cfg, plans, *, positions, group_cache=None,
+    cache_pos=None, kv_len=None, collect_kv=False, kernels="plain",
+):
+    """Apply one period group.  Returns (x, kv) where kv maps each block
+    to its full-sequence K/V when ``collect_kv`` (forward only)."""
+    kv_out: dict[str, PyTree] = {}
+    for i, plan in enumerate(plans):
+        name = f"block{i}"
+        blk = group_params[name]
+        h = _norm(cfg, blk.get("norm_mixer"), x)
+        out, kv = _self_attn(
+            blk["attn"], h, cfg, positions=positions,
+            cache=None if group_cache is None else group_cache[name],
+            cache_pos=cache_pos, kv_len=kv_len, kernels=kernels,
+        )
+        if collect_kv:
+            kv_out[name] = {"k": kv[0], "v": kv[1]}
+        x = x + out
+        if plan.ffn != "none":
+            h = _norm(cfg, blk.get("norm_ffn"), x)
+            x = x + L.mlp(blk["mlp"], h)
+    return x, kv_out
+
+
+# ---------------------------------------------------------------------------
+# Model entry points
+# ---------------------------------------------------------------------------
+
+
+def _check_attn_impl(attn_impl: str) -> None:
+    if attn_impl != "dense":
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A2: "
+            "attention_chunked; B3: flash attention); use 'dense'"
+        )
+
+
+_ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_fraction": 0.0}
+
+
+def forward(
+    params, cfg: ArchConfig, *, tokens, collect_kv=False, cache_pad_to=None,
+    attn_impl="dense",
+):
+    """Full-sequence forward.  Returns (logits, caches|None, aux).
+
+    ``collect_kv`` also returns each block's K/V stacked over groups,
+    (groups, B, S, KV, dh), zero-padded along S to ``cache_pad_to``.
+    """
+    _check_attn_impl(attn_impl)
+    plans = block_plans(cfg)
+    _check_ported(cfg, plans)
+    x = L.embed_lookup(params["embed"]["embedding"], tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    kvs = []
+    for g in range(_num_groups(params)):
+        x, kv = _apply_group(
+            _group(params["blocks"], g), x, cfg, plans,
+            positions=positions, collect_kv=collect_kv,
+        )
+        kvs.append(kv)
+    x = _norm(cfg, params.get("final_norm"), x)
+    lg = L.logits(params.get("head"), params["embed"], x, cfg)
+
+    caches = None
+    if collect_kv:
+        caches = {}
+        for name in kvs[0]:
+            caches[name] = {}
+            for key in ("k", "v"):
+                t = torch.stack([kv[name][key] for kv in kvs])
+                if cache_pad_to is not None and t.shape[2] < cache_pad_to:
+                    pad = t.new_zeros(t.shape[:2] + (cache_pad_to - t.shape[2],) + t.shape[3:])
+                    t = torch.cat([t, pad], dim=2)
+                caches[name][key] = t
+    return lg, caches, dict(_ZERO_AUX)
+
+
+class Transformer(torch.nn.Module):
+    """A thin ``nn.Module`` that owns a parameter tree: the nested dict
+    with ``model_layout``'s keys, held as frozen parameters (``.to``,
+    ``state_dict`` and the like work on it).  ``params`` hands the tree
+    back to the functions of this module and to the serving engine;
+    calling the module runs :func:`forward` and returns its logits."""
+
+    def __init__(self, cfg: ArchConfig, params: PyTree):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _to_module(params)
+
+    @property
+    def params(self) -> PyTree:
+        return _from_module(self.tree)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self.params, self.cfg, tokens=tokens)[0]
+
+
+def _to_module(tree: dict) -> torch.nn.Module:
+    if any(isinstance(v, dict) for v in tree.values()):
+        return torch.nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
+    return torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(v, requires_grad=False) for k, v in tree.items()}
+    )
+
+
+def _from_module(module: torch.nn.Module) -> PyTree:
+    if isinstance(module, torch.nn.ParameterDict):
+        return dict(module.items())
+    return {k: _from_module(v) for k, v in module.items()}
+
+
+def _emit_logits(params, cfg: ArchConfig, x, kernels: str = "plain"):
+    """Final-norm -> logits for one decode position: (B, 1, d) -> (B, V).
+
+    Under ``kernels="cuda"`` the two ops run as one fused kernel (the
+    norm recomputed per vocab tile on chip); ``"plain"`` runs them as
+    PyTorch ops.
+    """
+    if kernels == "cuda":
+        w = (
+            params["embed"]["embedding"]
+            if cfg.tie_embeddings
+            else params["head"]["w"]
+        )
+        fn = params.get("final_norm")
+        return get_impl("emit_norm_logits", "cuda")(
+            x, w, norm=cfg.norm,
+            scale=fn["scale"] if cfg.norm == "rmsnorm" else None,
+            eps=cfg.norm_eps, tied=cfg.tie_embeddings,
+        )
+    xn = _norm(cfg, params.get("final_norm"), x)
+    return L.logits(params.get("head"), params["embed"], xn, cfg)[:, 0, :]
+
+
+def decode_step(
+    params, caches, cfg: ArchConfig, *, tokens, lengths=None,
+    attn_impl="dense", kernels=None,
+):
+    """One-token step.  tokens: (B,) int; lengths: (B,) int32 current
+    context length per sequence (the cache write position).  Returns
+    (logits (B, V) fp32, caches), the caches updated in place.
+
+    ``kernels`` (None inherits ``cfg.kernels``) selects the per-op
+    implementations (see ``repro_torch.kernels``): ``"cuda"`` runs the
+    fused decode-attention and emit kernels, ``"plain"`` the PyTorch
+    versions, ``"auto"`` the kernels on a CUDA device."""
+    _check_attn_impl(attn_impl)
+    plans = block_plans(cfg)
+    _check_ported(cfg, plans)
+    mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
+    x = L.embed_lookup(params["embed"]["embedding"], tokens)[:, None, :]
+    bsz = tokens.shape[0]
+    if lengths is None:
+        lengths = torch.zeros((bsz,), dtype=torch.int32, device=tokens.device)
+    lengths = lengths.to(torch.int32)
+    positions = lengths[:, None]
+    kv_len = (lengths + 1)[:, None]  # (B,1) valid kv after the write
+    for g in range(_num_groups(params)):
+        x, _ = _apply_group(
+            _group(params["blocks"], g), x, cfg, plans,
+            positions=positions, group_cache=_group(caches, g),
+            cache_pos=lengths, kv_len=kv_len, kernels=mode,
+        )
+    return _emit_logits(params, cfg, x, mode), caches
+
+
+def _cache_seq_len(caches):
+    for blk in caches.values():
+        return blk["k"].shape[2]
+    return None
+
+
+def prefill_step(
+    params, caches, cfg: ArchConfig, *, tokens, pos: int = 0,
+    attn_impl="dense", logits_at: int | None = None, kernels=None,
+):
+    """Chunked prefill: process a prompt chunk at offset ``pos``.
+
+    tokens: (B, C).  Writes the chunk's K/V into ``caches`` in place at
+    [pos, pos + C), which must lie inside the cache.  Returns (logits
+    (B, V), caches) -- logits at the chunk's last position, or at index
+    ``logits_at`` when given (a ragged prompt tail padded to one masked
+    chunk reads its logits at the last *real* position; pad queries only
+    pollute pad rows, which the next decode's write position and kv_len
+    mask retire).
+
+    ``kernels`` (None inherits ``cfg.kernels``) is validated, but prefill
+    runs plain PyTorch in every mode, as in the JAX package: the kernels
+    target the decode loop.
+    """
+    _check_attn_impl(attn_impl)
+    plans = block_plans(cfg)
+    _check_ported(cfg, plans)
+    resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
+    x = L.embed_lookup(params["embed"]["embedding"], tokens)
+    s = x.shape[1]
+    positions = (pos + torch.arange(s, device=x.device))[None, :]
+    # Whole-cache prefill (pos 0, chunk covers the buffer): nothing to mask.
+    full_cover = pos == 0 and _cache_seq_len(caches) == s
+    kv_len = None if full_cover else pos + s
+    for g in range(_num_groups(params)):
+        x, _ = _apply_group(
+            _group(params["blocks"], g), x, cfg, plans,
+            positions=positions, group_cache=_group(caches, g),
+            cache_pos=pos, kv_len=kv_len,
+        )
+    at = s - 1 if logits_at is None else logits_at
+    x = _norm(cfg, params.get("final_norm"), x[:, at : at + 1, :])  # row-wise
+    lg = L.logits(params.get("head"), params["embed"], x, cfg)
+    return lg[:, 0, :], caches

@@ -24,6 +24,11 @@ def pytest_configure(config):
         "multidevice: spawns a subprocess with XLA_FLAGS device-forcing "
         "(skipped when virtual devices are unavailable)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of repro_torch on an NVIDIA GPU "
+        "(skipped where torch.cuda.is_available() is false)",
+    )
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,0 +1,113 @@
+"""The port stands alone: repro_torch and chip_smoke.py import neither
+``jax`` nor the JAX package, and the entry points refuse to run on a
+CUDA device that is not there instead of falling back to the CPU."""
+import os
+import pathlib
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_params, params_from_numpy
+from repro_torch.serve.engine import Engine, ServeConfig
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|from repro\b|import repro\.|from repro\.)", re.M)
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="repro_torch.")
+    )
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.decode_attention.ops" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'repro' or k.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)  # keeps JAX_PLATFORMS
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        stdin=subprocess.DEVNULL, env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_source_scan_finds_no_jax_or_repro_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+def _cuda_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    _cuda_absent(monkeypatch)
+    cfg = smoke_config(get_config("olmo-1b"))
+    layout = T.model_layout(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(layout, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"w": torch.zeros(2).numpy()})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device()
+    params = init_params(layout, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(params, cfg, ServeConfig(max_batch=2, max_len=16))
+    # the explicit CPU choice runs
+    eng = Engine(params, cfg, ServeConfig(max_batch=2, max_len=16, prefill_chunk=4,
+                                          max_new_tokens=2), device="cpu")
+    req = eng.submit([1, 2, 3])
+    eng.run_until_drained()
+    assert req.done and len(req.out_tokens) == 2
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py exits non-zero and prints no result line without a card."""
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True, text=True,
+        stdin=subprocess.DEVNULL, env=env, timeout=120, cwd=ROOT,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_init_params_shapes_dtypes_and_seed():
+    cfg = smoke_config(get_config("qwen3-32b"))
+    layout = T.model_layout(cfg)
+    a = init_params(layout, seed=3, device="cpu")
+    b = init_params(layout, seed=3, device="cpu")
+    c = init_params(layout, seed=4, device="cpu")
+    wq = a["blocks"]["block0"]["attn"]["wq"]
+    assert wq.shape == (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim)
+    assert wq.dtype == torch.bfloat16
+    assert a["blocks"]["block0"]["attn"]["q_norm"].dtype == torch.float32
+    assert torch.equal(wq, b["blocks"]["block0"]["attn"]["wq"])
+    assert not torch.equal(wq, c["blocks"]["block0"]["attn"]["wq"])
+    # fan-in scale, as in the JAX package: the product of the non-stacked
+    # axes but the last, here d_model * num_heads for wq (d, H, dh)
+    fan_in = cfg.d_model * cfg.num_heads
+    assert abs(float(wq.float().std()) * fan_in**0.5 - 1.0) < 0.1
