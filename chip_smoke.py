@@ -11,10 +11,15 @@
    version's time, one library call's time (a yardstick the port never
    calls) and the least time the card could take (``bound_ms``).
 3. Engine phase: full-width OLMo-1B (random weights from a seed) served
-   through ``Engine``: 12 ragged requests through 8 slots; the launch
-   counters show that every decode step went through both kernels.
-4. End-to-end check: one decode state stepped with the kernels and with
-   ``kernels="plain"`` on copies of the same cache.
+   through ``Engine``: 12 ragged requests through 8 slots, once with
+   ``attn_impl="dense"`` and once with ``"flash"``; the launch counters,
+   zeroed before each run, show that every decode step went through the
+   decode-attention and emit kernels and, under ``"flash"``, every
+   prefill chunk through the flash-attention kernel.
+4. End-to-end checks: one decode state stepped with the kernels and with
+   ``kernels="plain"`` on copies of the same cache; one prefill chunk at
+   ``pos = 128`` with ``attn_impl="flash"`` and ``"dense"`` on copies of
+   the same cache.
 
 Any failure exits non-zero.  The line before the last is the ``kernels``
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
@@ -264,6 +269,106 @@ def run_emit(gen, results):
     results["emit_norm_logits"] = main
 
 
+# Flash attention: outputs are convex combinations of order-1 values.
+# bf16: the kernel rounds P to bf16 for P.V on the tensor cores (the
+# plain version keeps P in fp32), then rounds the output once; JAX's own
+# tolerance for its flash kernel, atol = rtol = 2e-2.  fp32: sums of up
+# to 2048 terms in another order, atol = rtol = 2e-5 (also JAX's).
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+L2_BYTES = 50e6
+
+
+def flash_work(b, sq, sk, h, kv, dh, causal, q_offset, lens, elem):
+    """(bytes, operations) this call needs: q and the output once, the K
+    and V rows some query can see once per KV head; 4 * dh operations for
+    each (query, head, valid key) pair."""
+    pairs = rows = 0
+    for n in lens:
+        n = min(max(n, 0), sk)
+        if causal:
+            rows += min(n, max(q_offset + sq, 0))
+            pairs += sum(min(n, max(q_offset + i + 1, 0)) for i in range(sq))
+        else:
+            rows += n
+            pairs += sq * n
+    nbytes = elem * (2 * b * sq * h * dh + 2 * rows * kv * dh) + 4 * b
+    return nbytes, 4 * h * dh * pairs
+
+
+def run_flash(gen, results):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # label, b, sq, sk, h, kv, dtype, causal, q_offset, kv_len (None | int | per-row list)
+        ("prefill chunk", 1, 128, 1024, 16, 16, bf16, True, 0, 128),
+        ("prefill chunk", 1, 128, 1024, 16, 16, bf16, True, 128, 256),
+        ("prefill chunk", 1, 128, 1024, 16, 16, bf16, True, 512, 640),  # the record's case
+        ("ragged kv_len", 4, 128, 1024, 16, 16, bf16, True, 512, [640, 0, 300, 1024]),
+        ("forward", 1, 2048, 2048, 16, 16, bf16, True, 0, None),
+        ("qwen3-32b GQA prefill chunk", 1, 128, 1024, 64, 8, bf16, True, 512, 640),
+        ("prefill chunk", 1, 128, 1024, 16, 16, f32, True, 512, 640),
+    ]
+    dh = 128
+    for label, b, sq, sk, h, kv, dtype, causal, q_offset, kv_len in cases:
+        elem = torch.tensor([], dtype=dtype).element_size()
+        per_copy = elem * (2 * b * sq * h * dh + 2 * b * sk * kv * dh)
+        copies = min(16, max(1, -(-int(1.3 * L2_BYTES) // per_copy)))  # together colder than L2
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+        lens = (kv_len if isinstance(kv_len, int) or kv_len is None
+                else torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+        inputs = [(rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)) for _ in range(copies)]
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=lens)
+        got = flash_attention(*inputs[0], **kw)
+        want = flash_attention_ref(*inputs[0], **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+        err = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got.float()).all()) and bool(
+            (err <= tol + tol * want.float().abs()).all())
+        kernel = [lambda a=a: flash_attention(*a, **kw) for a in inputs]
+        plain = [lambda a=a: flash_attention_ref(*a, **kw) for a in inputs]
+        ms, plain_ms = device_ms(kernel), device_ms(plain)
+        host_ms = eager_ms(kernel[0])
+        # yardstick: SDPA over the keys some query can see, with an explicit mask
+        per_row = [sk] * b if kv_len is None else (
+            [kv_len] * b if isinstance(kv_len, int) else list(kv_len))
+        n = max(min(max(x, 0), sk) for x in per_row)
+        key = torch.arange(n, device="cuda")
+        mask = key[None, None, :] < torch.tensor(per_row, device="cuda")[:, None, None]
+        if causal:
+            mask = mask & (key[None, :] <= torch.arange(sq, device="cuda")[:, None] + q_offset)
+        mask = mask[:, None]  # (B, 1, Sq, n)
+        sdpa_kw = {"enable_gqa": True} if h != kv else {}
+        library = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2),
+            attn_mask=mask, **sdpa_kw) for q, k, v in inputs]
+        lib_ms = device_ms(library)
+        nbytes, ops = flash_work(b, sq, sk, h, kv, dh, causal, q_offset, per_row, elem)
+        bms, by = bound_ms(nbytes, ops, dtype)
+        print(f"flash_attention {label} B={b} Sq={sq} cache={sk} H={h} KV={kv} dh={dh} {dtype} "
+              f"causal={causal} q_offset={q_offset} kv_len={kv_len}: "
+              f"max_abs_err={err.max().item():.3e} tol={tol:g} {'ok' if ok else 'FAILED'}; "
+              f"device kernel {ms:.4f} ms (eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP)", flush=True)
+        if not ok:
+            fail(f"flash_attention {label} {dtype} q_offset={q_offset} disagrees with its "
+                 f"plain version")
+        if label == "prefill chunk" and q_offset == 512 and dtype == bf16:
+            results["flash_attention"] = dict(
+                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+        del inputs, kernel, plain, library
+
+
 # ---------------------------------------------------------------------------
 # Engine phase and end-to-end check
 # ---------------------------------------------------------------------------
@@ -271,14 +376,17 @@ def run_emit(gen, results):
 PROMPT_LENS = [17, 600, 128, 255, 64, 383, 511, 31, 129, 450, 200, 97]
 
 
-def run_engine(cfg, params, launches):
+def run_engine(cfg, params, attn_impl):
+    """Serve the 12 requests; returns (their out_tokens, the launch
+    counts of the run)."""
     import numpy as np
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    scfg = ServeConfig(max_batch=8, max_len=1024, prefill_chunk=128, max_new_tokens=32)
+    scfg = ServeConfig(max_batch=8, max_len=1024, prefill_chunk=128, max_new_tokens=32,
+                       attn_impl=attn_impl)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
 
@@ -318,7 +426,7 @@ def run_engine(cfg, params, launches):
             break
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches.update(K.LAUNCHES)
+    launches = dict(K.LAUNCHES)
 
     steps = eng.decode_steps
     if not all(r.done and r.status == "ok" for r in reqs):
@@ -328,25 +436,29 @@ def run_engine(cfg, params, launches):
         fail(f"tokens outside [0, {cfg.vocab_size}): {bad[:5]}")
     if any(len(r.out_tokens) != scfg.max_new_tokens for r in reqs):
         fail("a request stopped short of its budget")
-    want = {"decode_attention": steps * cfg.num_layers, "emit_norm_logits": steps}
+    chunks = len(spent["_prefill"])
+    want = {"decode_attention": steps * cfg.num_layers, "emit_norm_logits": steps,
+            "attention": chunks * cfg.num_layers if attn_impl == "flash" else 0}
     if launches != want:
-        fail(f"launch counts {launches}, expected {want} for {steps} decode steps")
+        fail(f"attn_impl={attn_impl}: launch counts {launches}, expected {want} for {steps} "
+             f"decode steps and {chunks} prefill chunks")
     tokens = sum(len(r.out_tokens) for r in reqs)
     t = sorted(ttft.values())
-    print(f"engine olmo-1b full width ({cfg.num_layers} layers, d {cfg.d_model}, V {cfg.vocab_size}, "
-          f"{cfg.dtype}): {len(reqs)} requests, prompts {min(PROMPT_LENS)}-{max(PROMPT_LENS)}, "
-          f"{tokens} tokens, {steps} decode steps in {wall:.3f} s: {tokens / wall:.1f} tok/s; "
-          f"TTFT p50 {statistics.median(t) * 1e3:.1f} ms, max {t[-1] * 1e3:.1f} ms; "
-          f"launches {launches}", flush=True)
+    print(f"engine attn_impl={attn_impl} olmo-1b full width ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, V {cfg.vocab_size}, {cfg.dtype}): {len(reqs)} requests, prompts "
+          f"{min(PROMPT_LENS)}-{max(PROMPT_LENS)}, {tokens} tokens, {steps} decode steps in "
+          f"{wall:.3f} s: {tokens / wall:.1f} tok/s; TTFT p50 {statistics.median(t) * 1e3:.1f} ms, "
+          f"max {t[-1] * 1e3:.1f} ms; launches {launches}", flush=True)
     dec, pre = spent["_decode"], spent["_prefill"]
-    print(f"engine time: {len(dec)} decode steps, p50 {statistics.median(dec) * 1e3:.2f} ms, "
-          f"total {sum(dec):.3f} s; {len(pre)} prefill calls (chunk 128), p50 "
-          f"{statistics.median(pre) * 1e3:.2f} ms, total {sum(pre):.3f} s; rest (host "
-          f"bookkeeping, sampling, slot copies) {wall - sum(dec) - sum(pre):.3f} s", flush=True)
-    return eng
+    print(f"engine attn_impl={attn_impl} time: {len(dec)} decode steps, p50 "
+          f"{statistics.median(dec) * 1e3:.2f} ms, total {sum(dec):.3f} s; {chunks} prefill "
+          f"chunks (128 tokens), p50 {statistics.median(pre) * 1e3:.2f} ms, total "
+          f"{sum(pre):.3f} s; rest (host bookkeeping, sampling, slot copies) "
+          f"{wall - sum(dec) - sum(pre):.3f} s", flush=True)
+    return [r.out_tokens for r in reqs], launches
 
 
-def run_end_to_end(cfg, params):
+def run_decode_end_to_end(cfg, params):
     """One decode state of the served model, stepped with the kernels and
     with ``kernels="plain"`` on copies of the same cache, in fp32 (params
     and cache upcast) and in bf16 (as served).
@@ -405,6 +517,78 @@ def run_end_to_end(cfg, params):
         del p
 
 
+def run_prefill_end_to_end(cfg, params):
+    """One prefill chunk of 128 tokens at ``pos = 128`` (4 prompts whose
+    first chunk is already in the cache), run with ``attn_impl="flash"``
+    (the kernel) and ``"dense"`` on copies of the same cache, in fp32
+    (params and cache upcast) and in bf16 (as served).
+
+    fp32: the kernel and the plain path differ in the order of fp32 sums;
+    allowed 1e-4 of each row's largest |logit|, and the greedy tokens
+    must be equal.  bf16: the kernel rounds P to bf16 for P.V where the
+    dense path keeps fp32, and every layer's output is rounded to bf16.
+    With D the largest distance, per row, between the bf16 dense logits
+    and the fp32 dense logits (what serving in bf16 moves them), two bf16
+    paths that each lie within D of the fp32 result lie within 2 D of
+    each other: allowed 2 D.  Greedy tokens must agree wherever the dense
+    top-1 beats its top-2 by more than twice the allowance."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import map_tree
+
+    b, c, pos = 4, 128, 128
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, pos + c)), device="cuda")
+    base = T.init_cache(cfg, b, 1024, device="cuda")
+    T.prefill_step(params, base, cfg, tokens=toks[:, :pos], pos=0)
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = map_tree(lambda t: t.to(torch.float32) if dtype == torch.float32 else t, params)
+        c_cfg = cfg.with_overrides(dtype=dtype)
+        for impl in ("flash", "dense"):
+            cache = {n: {k: t.to(dtype, copy=True) for k, t in blk.items()}
+                     for n, blk in base.items()}
+            K.reset_launches()
+            logits[impl, dtype], _ = T.prefill_step(p, cache, c_cfg, tokens=toks[:, pos:],
+                                                    pos=pos, attn_impl=impl)
+            torch.cuda.synchronize()
+            want = cfg.num_layers if impl == "flash" else 0
+            if K.LAUNCHES["attention"] != want:
+                fail(f"prefill_step attn_impl={impl} launched the flash kernel "
+                     f"{K.LAUNCHES['attention']} times, expected {want}")
+            del cache
+        del p
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = logits["flash", dtype], logits["dense", dtype]
+        if dtype == torch.float32:
+            tol = 1e-4 * want.abs().amax(dim=-1, keepdim=True)
+        else:
+            drift = (want - logits["dense", torch.float32]).abs().amax(dim=-1, keepdim=True)
+            tol = 2 * drift
+            own = ((got - logits["dense", torch.float32]).abs().amax(dim=-1, keepdim=True)
+                   / drift).max().item()
+            print(f"  bf16 flash vs fp32 dense: {own:.3f} x the bf16 dense path's own drift",
+                  flush=True)
+        err = (got - want).abs()
+        worst = (err / tol).max().item()
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol.squeeze(-1)
+        if dtype == torch.float32:
+            decided = torch.ones_like(decided)
+        same = got.argmax(-1) == want.argmax(-1)
+        print(f"end-to-end prefill_step flash vs dense, {dtype} (B={b}, chunk {c} at pos {pos}): "
+              f"max_abs_err={err.max().item():.3e} worst/allowed={worst:.3f} (allowed per row "
+              f"{[round(x, 5) for x in tol.squeeze(-1).tolist()]}); greedy tokens equal in "
+              f"{int(same.sum())}/{b} rows, {int(decided.sum())} compared", flush=True)
+        if worst > 1:
+            fail(f"end-to-end prefill {dtype}: flash logits disagree with the dense path")
+        if not bool(same[decided].all()):
+            fail(f"end-to-end prefill {dtype}: greedy tokens differ")
+
+
 def main() -> int:
     try:
         import torch
@@ -444,22 +628,32 @@ def main() -> int:
     results: dict[str, dict] = {}
     run_decode_attention(gen, results)
     run_emit(gen, results)
+    run_flash(gen, results)
     torch.cuda.empty_cache()
 
     # 3. Engine phase
     cfg = get_config("olmo-1b")
     params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")).params
-    launches: dict[str, int] = {}
-    run_engine(cfg, params, launches)
+    dense_tokens, launches = run_engine(cfg, params, "dense")
+    flash_tokens, flash_launches = run_engine(cfg, params, "flash")
+    launches["flash_attention"] = flash_launches["attention"]
+    same = sum(a == b for x, y in zip(dense_tokens, flash_tokens) for a, b in zip(x, y))
+    total = sum(len(x) for x in dense_tokens)
+    print(f"engine flash vs dense: {same}/{total} tokens agree position by position, "
+          f"{sum(x == y for x, y in zip(dense_tokens, flash_tokens))}/{len(dense_tokens)} "
+          f"requests identical", flush=True)
 
-    # 4. End-to-end check
-    run_end_to_end(cfg, params)
+    # 4. End-to-end checks
+    run_decode_end_to_end(cfg, params)
+    run_prefill_end_to_end(cfg, params)
 
     source = {
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:34"),
         "emit_norm_logits": ("src/repro_torch/kernels/csrc/emit_norm_logits.cu",
                              "src/repro/kernels/emit_norm_logits/kernel.py:45"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:32"),
     }
     record = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -10,6 +10,10 @@ checks its operands and launches the kernel); the CUDA sources are under
   against it, so no updated cache page is written before the read.
 * ``emit_norm_logits`` -- decode-emit epilogue: final norm + LM-head
   product in one pass over vocab tiles.
+* ``attention`` (``flash_attention``) -- the prompt path: tiled
+  online-softmax attention, causal or not, GQA, with chunked prefill's
+  ``q_offset`` and ``kv_len``; ``layers.attention(impl="flash")`` and
+  through it ``forward`` and ``prefill_step`` dispatch it.
 
 Model code selects implementations through :func:`get_impl` driven by the
 ``kernels`` config knob (``"plain" | "cuda" | "auto"``).  ``"auto"``
@@ -46,6 +50,9 @@ _CUDA_IMPLS = {
     "emit_norm_logits": (
         "repro_torch.kernels.emit_norm_logits.ops", "emit_norm_logits"
     ),
+    "attention": (
+        "repro_torch.kernels.flash_attention.ops", "flash_attention"
+    ),
 }
 _PLAIN_IMPLS = {
     "decode_attention": (
@@ -53,6 +60,9 @@ _PLAIN_IMPLS = {
     ),
     "emit_norm_logits": (
         "repro_torch.kernels.emit_norm_logits.ref", "emit_norm_logits_ref"
+    ),
+    "attention": (
+        "repro_torch.kernels.flash_attention.ref", "flash_attention_ref"
     ),
 }
 
@@ -109,7 +119,7 @@ def get_impl(op: str, mode: str = "auto"):
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "emit_norm_logits")
+SOURCES = ("decode_attention", "emit_norm_logits", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

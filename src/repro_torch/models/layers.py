@@ -3,9 +3,19 @@
 PyTorch port of ``repro.models.layers``: the same functions on the same
 parameter dicts and layouts, op for op (fp32 upcasts and casts back at
 the same places).  The JAX package's sharding hooks (``constrain*``)
-have no counterpart on one device and are dropped.  Of the attention
-implementations only ``dense`` is ported so far; ``chunked`` and the
-flash kernel are later slices (ROADMAP A2, B3).
+have no counterpart on one device and are dropped.
+
+Attention comes in three interchangeable implementations (``attn_impl``):
+
+* ``dense`` -- full score matrix.
+* ``chunked`` -- streaming attention (online softmax over KV chunks), the
+  oracle of the flash kernel; memory O(chunk^2) instead of O(S^2).
+* ``flash`` -- the hand-written CUDA kernel
+  (:mod:`repro_torch.kernels.flash_attention`), dispatched through
+  ``get_impl("attention", kernels)``: the kernel for ``kernels="cuda"``,
+  its plain version for ``"plain"``.  It is the JAX package's
+  ``"pallas"``, but keeps ``q_offset`` and ``kv_len``, which the Pallas
+  kernel drops.
 """
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import get_impl
 from repro_torch.models.params import ParamSpec
 
 PyTree = Any
@@ -111,6 +122,120 @@ def attention_dense(
     probs = torch.where(torch.isnan(probs), 0.0, probs)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def attention_chunked(
+    q, k, v, *, causal: bool, q_chunk: int = 512, kv_chunk: int = 1024,
+    q_offset=0, kv_len=None, softmax_scale=None, causal_skip=None,
+):
+    """Streaming (online-softmax) attention; the flash-attention oracle.
+
+    Walks KV chunks with carried (m, l, acc) -- memory O(q_chunk x
+    kv_chunk) -- for each q chunk.  Blocks stay in the input dtype,
+    scores and statistics in fp32; P is rounded to the input dtype
+    before P.V, as in the JAX package.  ``causal_skip`` (None = auto)
+    visits only the KV chunks on or below the diagonal; it applies only
+    when ``causal and q_offset == 0 and sq == sk and kv_len is None``.
+    Python loops take the place of the JAX package's scans (no
+    checkpointing: training is not ported yet).
+    """
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    scale = softmax_scale or dh**-0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, sk)
+    # Ragged lengths are padded to chunk multiples: padded KV is masked
+    # through kv_len, padded Q sliced off.
+    sq_pad = -(-sq // q_chunk) * q_chunk
+    sk_pad = -(-sk // kv_chunk) * kv_chunk
+    if sk_pad != sk:
+        k = F.pad(k, (0, 0, 0, 0, 0, sk_pad - sk))
+        v = F.pad(v, (0, 0, 0, 0, 0, sk_pad - sk))
+        kv_len = torch.clamp(torch.as_tensor(sk if kv_len is None else kv_len,
+                                             device=q.device), max=sk)
+    if sq_pad != sq:
+        q = F.pad(q, (0, 0, 0, 0, 0, sq_pad - sq))
+    orig_sq, sq, sk = sq, sq_pad, sk_pad
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    g = h // kv
+    qg = q.reshape(b, nq, q_chunk, kv, g, dh)
+    kc = k.reshape(b, nk, kv_chunk, kv, dh)
+    vc = v.reshape(b, nk, kv_chunk, kv, dh)
+    klen = None if kv_len is None else torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
+
+    def block_update(carry, q_blk, k_blk, v_blk, qi, kj):
+        m, l, acc = carry
+        s = torch.einsum("bqkgd,bskd->bqkgs", q_blk.float(), k_blk.float()) * scale
+        kv_pos = kj * kv_chunk + torch.arange(kv_chunk, device=q.device)
+        mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device) + q_offset
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        mask = mask[None].expand(b, q_chunk, kv_chunk)
+        if klen is not None:
+            mask = mask & (kv_pos[None, :] < klen)[:, None, :]  # (B|1, Sk) rows
+        mask = mask[:, :, None, None, :]
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard -inf rows (no valid key yet)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqkgs,bskd->bqkgd", p.to(q_blk.dtype).float(), v_blk.float())
+        return m_new, l, acc
+
+    auto_skip = causal and isinstance(q_offset, int) and q_offset == 0 and sq == sk \
+        and kv_len is None
+    causal_skip = auto_skip if causal_skip is None else (causal_skip and auto_skip)
+    outs = []
+    for qi in range(nq):
+        # The skip visits the KV chunks that hold a key at or below this q
+        # chunk's last row.  (The JAX package's pair list, kj <= qi, misses
+        # chunks when q_chunk > kv_chunk; with q_chunk <= kv_chunk its
+        # extra pairs are fully masked and change nothing.)
+        last = min(nk, ((qi + 1) * q_chunk - 1) // kv_chunk + 1) if causal_skip else nk
+        carry = (
+            torch.full((b, q_chunk, kv, g), -torch.inf, device=q.device),
+            torch.zeros((b, q_chunk, kv, g), device=q.device),
+            torch.zeros((b, q_chunk, kv, g, dh), device=q.device),
+        )
+        for kj in range(last):
+            carry = block_update(carry, qg[:, qi], kc[:, kj], vc[:, kj], qi, kj)
+        m, l, acc = carry
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, dim=1)  # (B, nq, q_chunk, KV, G, dh)
+    return out.reshape(b, sq, h, dh)[:, :orig_sq].to(q.dtype)
+
+
+ATTN_IMPLS = ("dense", "chunked", "flash")
+
+
+def check_attn_impl(impl: str) -> None:
+    """Raise for a name that is not one of the port's implementations."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(
+            f"attn_impl={impl!r}; the port's implementations are {ATTN_IMPLS} "
+            "(the JAX package's 'pallas' is 'flash' here)"
+        )
+
+
+def attention(q, k, v, *, impl: str = "dense", kernels: str = "plain", **kw):
+    """One of the three implementations on the same arguments.  ``kernels``
+    is a resolved mode (``"plain"`` or ``"cuda"``) and picks, for
+    ``impl="flash"``, the kernel or its plain version."""
+    check_attn_impl(impl)
+    if impl == "chunked":
+        return attention_chunked(q, k, v, **kw)
+    for extra in ("q_chunk", "kv_chunk", "causal_skip"):
+        kw.pop(extra, None)
+    if impl == "dense":
+        return attention_dense(q, k, v, **kw)
+    # einsum may hand back permuted views; the kernel takes contiguous
+    # operands (a no-op where they already are)
+    return get_impl("attention", kernels)(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -181,17 +181,23 @@ def _norm(cfg, params, x):
 
 def _self_attn(
     params, x, cfg, *, positions, cache=None, cache_pos=None, kv_len=None,
+    attn_impl="dense", q_chunk=512, kv_chunk=1024, causal_skip=None,
     kernels="plain",
 ):
     """Self-attention; with cache: decode or chunked prefill.
     Returns (out, (k, v)) with this call's K/V.
 
+    ``attn_impl`` (``"dense" | "chunked" | "flash"``) picks the attention
+    core (``layers.attention``); ``kernels`` is the resolved mode, which
+    for ``"flash"`` picks the CUDA kernel or its plain version.
+
     Decode (S==1): ``cache_pos`` is (B,) int32 per-sequence write
     positions; the new K/V row of each sequence is written in place at
     its position.  ``kernels="cuda"`` reads attention through the fused
     decode-attention kernel (new row substituted on chip, cache read
-    before the write); ``"plain"`` writes the row first and runs
-    ``attention_dense`` over the cache.
+    before the write), which takes precedence over ``attn_impl`` as in
+    the JAX package; ``"plain"`` writes the row first and runs
+    ``attn_impl`` over the cache.
 
     Chunked prefill (S>1): ``cache_pos`` is an int chunk offset; the
     chunk is written in place at [pos, pos+S) -- which must lie inside
@@ -199,8 +205,10 @@ def _self_attn(
     the offset instead) -- and attends causally to the cache.
     """
     q, k, v = L.attn_project_qkv(params, x, cfg, positions)
+    impl = dict(impl=attn_impl, kernels=kernels, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                causal_skip=causal_skip)
     if cache is None:
-        return L.attn_out(params, L.attention_dense(q, k, v, causal=True)), (k, v)
+        return L.attn_out(params, L.attention(q, k, v, causal=True, **impl)), (k, v)
     bsz, s = x.shape[:2]
     ck, cv = cache["k"], cache["v"]
     if s == 1:
@@ -230,15 +238,16 @@ def _self_attn(
         ck[:, cache_pos : cache_pos + s] = k.to(ck.dtype)
         cv[:, cache_pos : cache_pos + s] = v.to(cv.dtype)
         causal, q_offset = True, cache_pos
-    ctx = L.attention_dense(
-        q, ck, cv, causal=causal, q_offset=q_offset, kv_len=kv_len,
+    ctx = L.attention(
+        q, ck, cv, causal=causal, q_offset=q_offset, kv_len=kv_len, **impl,
     )
     return L.attn_out(params, ctx), (k, v)
 
 
 def _apply_group(
     group_params, x, cfg, plans, *, positions, group_cache=None,
-    cache_pos=None, kv_len=None, collect_kv=False, kernels="plain",
+    cache_pos=None, kv_len=None, collect_kv=False, attn_impl="dense",
+    q_chunk=512, kv_chunk=1024, causal_skip=None, kernels="plain",
 ):
     """Apply one period group.  Returns (x, kv) where kv maps each block
     to its full-sequence K/V when ``collect_kv`` (forward only)."""
@@ -250,7 +259,9 @@ def _apply_group(
         out, kv = _self_attn(
             blk["attn"], h, cfg, positions=positions,
             cache=None if group_cache is None else group_cache[name],
-            cache_pos=cache_pos, kv_len=kv_len, kernels=kernels,
+            cache_pos=cache_pos, kv_len=kv_len, attn_impl=attn_impl,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
+            kernels=kernels,
         )
         if collect_kv:
             kv_out[name] = {"k": kv[0], "v": kv[1]}
@@ -266,29 +277,25 @@ def _apply_group(
 # ---------------------------------------------------------------------------
 
 
-def _check_attn_impl(attn_impl: str) -> None:
-    if attn_impl != "dense":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A2: "
-            "attention_chunked; B3: flash attention); use 'dense'"
-        )
-
-
 _ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_fraction": 0.0}
 
 
 def forward(
     params, cfg: ArchConfig, *, tokens, collect_kv=False, cache_pad_to=None,
-    attn_impl="dense",
+    attn_impl="dense", q_chunk=512, kv_chunk=1024, causal_skip=None,
+    kernels=None,
 ):
     """Full-sequence forward.  Returns (logits, caches|None, aux).
 
     ``collect_kv`` also returns each block's K/V stacked over groups,
     (groups, B, S, KV, dh), zero-padded along S to ``cache_pad_to``.
+    ``kernels`` (None inherits ``cfg.kernels``) picks, under
+    ``attn_impl="flash"``, the flash kernel or its plain version.
     """
-    _check_attn_impl(attn_impl)
+    L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
     _check_ported(cfg, plans)
+    mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
     x = L.embed_lookup(params["embed"]["embedding"], tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
@@ -296,7 +303,9 @@ def forward(
     for g in range(_num_groups(params)):
         x, kv = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
-            positions=positions, collect_kv=collect_kv,
+            positions=positions, collect_kv=collect_kv, attn_impl=attn_impl,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
+            kernels=mode,
         )
         kvs.append(kv)
     x = _norm(cfg, params.get("final_norm"), x)
@@ -375,7 +384,7 @@ def _emit_logits(params, cfg: ArchConfig, x, kernels: str = "plain"):
 
 def decode_step(
     params, caches, cfg: ArchConfig, *, tokens, lengths=None,
-    attn_impl="dense", kernels=None,
+    attn_impl="dense", kv_chunk=1024, kernels=None,
 ):
     """One-token step.  tokens: (B,) int; lengths: (B,) int32 current
     context length per sequence (the cache write position).  Returns
@@ -384,8 +393,9 @@ def decode_step(
     ``kernels`` (None inherits ``cfg.kernels``) selects the per-op
     implementations (see ``repro_torch.kernels``): ``"cuda"`` runs the
     fused decode-attention and emit kernels, ``"plain"`` the PyTorch
-    versions, ``"auto"`` the kernels on a CUDA device."""
-    _check_attn_impl(attn_impl)
+    versions, ``"auto"`` the kernels on a CUDA device.  ``attn_impl``
+    applies where the decode-attention kernel does not run."""
+    L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
     _check_ported(cfg, plans)
     mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
@@ -400,7 +410,8 @@ def decode_step(
         x, _ = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
             positions=positions, group_cache=_group(caches, g),
-            cache_pos=lengths, kv_len=kv_len, kernels=mode,
+            cache_pos=lengths, kv_len=kv_len, attn_impl=attn_impl,
+            q_chunk=1, kv_chunk=kv_chunk, kernels=mode,
         )
     return _emit_logits(params, cfg, x, mode), caches
 
@@ -413,7 +424,8 @@ def _cache_seq_len(caches):
 
 def prefill_step(
     params, caches, cfg: ArchConfig, *, tokens, pos: int = 0,
-    attn_impl="dense", logits_at: int | None = None, kernels=None,
+    attn_impl="dense", q_chunk=512, kv_chunk=1024,
+    logits_at: int | None = None, kernels=None,
 ):
     """Chunked prefill: process a prompt chunk at offset ``pos``.
 
@@ -425,14 +437,16 @@ def prefill_step(
     pollute pad rows, which the next decode's write position and kv_len
     mask retire).
 
-    ``kernels`` (None inherits ``cfg.kernels``) is validated, but prefill
-    runs plain PyTorch in every mode, as in the JAX package: the kernels
-    target the decode loop.
+    ``kernels`` (None inherits ``cfg.kernels``) picks, under
+    ``attn_impl="flash"``, the flash kernel (``"cuda"``, or ``"auto"`` on
+    a CUDA device) or its plain version; the chunk's queries sit at
+    ``q_offset = pos`` and see ``kv_len = pos + C`` keys.  The other ops
+    of prefill run plain PyTorch in every mode.
     """
-    _check_attn_impl(attn_impl)
+    L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
     _check_ported(cfg, plans)
-    resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
+    mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
     x = L.embed_lookup(params["embed"]["embedding"], tokens)
     s = x.shape[1]
     positions = (pos + torch.arange(s, device=x.device))[None, :]
@@ -443,7 +457,8 @@ def prefill_step(
         x, _ = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
             positions=positions, group_cache=_group(caches, g),
-            cache_pos=pos, kv_len=kv_len,
+            cache_pos=pos, kv_len=kv_len, attn_impl=attn_impl,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, kernels=mode,
         )
     at = s - 1 if logits_at is None else logits_at
     x = _norm(cfg, params.get("final_norm"), x[:, at : at + 1, :])  # row-wise

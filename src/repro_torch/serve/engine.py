@@ -10,6 +10,10 @@ sampling and retirement run in host Python between steps.
     copied into a free slot of the batch cache in place.
   * retire: slots retire on EOS, exhausted budget, or the ``max_len``
     cache boundary -- including on the prefill-sampled first token.
+  * ``ServeConfig.attn_impl`` (``"dense" | "chunked" | "flash"``) picks
+    prefill's attention core; ``"flash"`` runs the flash-attention kernel
+    on a CUDA device.  Decode attention runs the fused decode-attention
+    kernel there whatever the name.
   * sampling: greedy argmax.  Temperature sampling, which must match
     ``jax.random`` bit for bit, is not ported yet (ROADMAP A4) and raises.
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 PyTree = Any
@@ -65,7 +70,7 @@ class ServeConfig:
     max_new_tokens: int = 64
     eos_id: int = -1  # -1: never; run to max_new_tokens
     temperature: float = 0.0  # 0 => greedy (the only mode ported)
-    attn_impl: str = "dense"
+    attn_impl: str = "dense"  # "dense" | "chunked" | "flash" (JAX's "pallas")
     seed: int = 0
     max_queue: int | None = None  # None: unbounded admission queue
 
@@ -101,6 +106,7 @@ class _EngineBase:
             raise ValueError("the engine serves token-input archs")
         if scfg.temperature > 0:
             raise NotImplementedError(_NO_TEMPERATURE)
+        L.check_attn_impl(scfg.attn_impl)
         self.device = resolve_device(device)
         table = params["embed"]["embedding"]
         if table.device.type != self.device.type:

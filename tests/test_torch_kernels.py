@@ -21,6 +21,8 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.emit_norm_logits import ops as emit_ops
 from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -174,7 +176,10 @@ def test_wrappers_run_the_plain_version_on_cpu_without_counting():
     w = torch.randn(32, 64, generator=torch.Generator().manual_seed(1))
     got = emit_ops.emit_norm_logits(x, w, norm="layernorm_nonparam")
     assert torch.equal(got, emit_norm_logits_ref(x, w, norm="layernorm_nonparam"))
-    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0}
+    q = torch.randn(1, 5, 2, 32, generator=torch.Generator().manual_seed(2))
+    got = fa_ops.flash_attention(q, q, q, causal=True, q_offset=3, kv_len=4)
+    assert torch.equal(got, flash_attention_ref(q, q, q, causal=True, q_offset=3, kv_len=4))
+    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -259,7 +264,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_library_path_follows_the_source(monkeypatch, tmp_path):
     names = {K.library_path(n).name for n in K.SOURCES}
-    assert len(names) == 2 and all(n.endswith(".so") for n in names)
+    assert len(names) == 3 and all(n.endswith(".so") for n in names)
     src = tmp_path / "decode_attention.cu"
     src.write_text("// edited\n")
     before = K.library_path("decode_attention")
