@@ -20,6 +20,13 @@
    ``kernels="plain"`` on copies of the same cache; one prefill chunk at
    ``pos = 128`` with ``attn_impl="flash"`` and ``"dense"`` on copies of
    the same cache.
+5. Mamba2-1.3B at full width (48 blocks, random weights from a seed),
+   after OLMo's weights are freed: the same 12 requests through
+   ``Engine`` with 256-token prefill chunks; the counters show every
+   prefill call through the SSD kernel once per layer, every prefill
+   call and decode step through the RMSNorm kernel once per layer, every
+   decode step through the emit kernel.  Then a prefill chunk, a ragged
+   tail and a decode step with the kernels against ``kernels="plain"``.
 
 Any failure exits non-zero.  The line before the last is the ``kernels``
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
@@ -223,11 +230,13 @@ def run_emit(gen, results):
     from repro_torch.kernels.emit_norm_logits.ops import emit_norm_logits
     from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
 
-    b, d, v, eps = 8, 2048, 50304, 1e-5
+    b, d, eps = 8, 2048, 1e-5
     main = None
-    # OLMo-1B's own case (layernorm, tied) first
-    for norm, tied in (("layernorm_nonparam", True), ("layernorm_nonparam", False),
-                       ("rmsnorm", True), ("rmsnorm", False)):
+    # OLMo-1B's own case (layernorm, tied, V 50304) first; Mamba2-1.3B's
+    # (rmsnorm, tied, V 50280) second
+    for norm, tied, v in (("layernorm_nonparam", True, 50304), ("rmsnorm", True, 50280),
+                          ("layernorm_nonparam", False, 50304), ("rmsnorm", True, 50304),
+                          ("rmsnorm", False, 50304)):
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
             shape, std = ((v, d), 0.02) if tied else ((d, v), d**-0.5)
@@ -369,24 +378,175 @@ def run_flash(gen, results):
         del inputs, kernel, plain, library
 
 
+# SSD intra-chunk kernel.  fp32: sums of up to 256 products in another
+# order, and the chunk's cumsum scanned in another order: 1e-4.  bf16 y:
+# the same fp32 value rounded once to bf16, which one fp32 ulp can move
+# by one bf16 ulp: 2 bf16 ulps at magnitude 1, 1.6e-2.  state (fp32
+# always) and cum: 1e-4.  The chunked SSD through the kernel against the
+# naive recurrence: 2e-3, as the JAX package holds its Pallas kernel.
+SSD_TOL = {"bfloat16": 1.6e-2, "float32": 1e-4}
+
+
+def ssd_work(bc, h, q, p, g, n, elem):
+    """(bytes, operations) of one intra-chunk call: x, dt, B, C read once,
+    y, the fp32 state and cum written once; 2 operations per multiply-add
+    of the lower triangle of C.B^T (once per group: it does not depend on
+    the head) and of W.x (per head), and of the state product (per head).
+    The work is fp32 whatever x's dtype, so its peak is the fp32 rate."""
+    tri = q * (q + 1) // 2
+    nbytes = elem * (2 * bc * h * q * p + 2 * bc * g * q * n) + 4 * (
+        2 * bc * h * q + 2 * h + bc * h * n * p)
+    ops = bc * (2 * g * tri * n + h * (2 * tri * p + 2 * q * n * p))
+    return nbytes, ops
+
+
+def run_ssd(gen, results):
+    import torch
+
+    from repro_torch.kernels.ssd.ops import ssd_chunked_cuda, ssd_intra_chunk
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref, ssd_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # label, bc, h, q, p, g, n, dtype
+        ("mamba2-1.3b prefill chunk", 1, 64, 256, 64, 1, 128, bf16),  # the record's case
+        ("mamba2-1.3b prefill chunk", 1, 64, 256, 64, 1, 128, f32),
+        ("ragged tail", 1, 64, 37, 64, 1, 128, bf16),
+        ("G=4", 1, 64, 256, 64, 4, 128, bf16),
+    ]
+    for label, bc, h, q, p, g, n, dtype in cases:
+        elem = torch.tensor([], dtype=dtype).element_size()
+        nbytes, ops = ssd_work(bc, h, q, p, g, n, elem)
+        copies = min(16, max(1, -(-int(1.3 * L2_BYTES) // nbytes)))  # together colder than L2
+
+        def inputs():
+            def rnd(*shape, scale=1.0):
+                return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+            dt = torch.rand((bc, h, q), generator=gen, device="cuda") * 0.19 + 0.01
+            a = -(torch.rand((h,), generator=gen, device="cuda") + 0.5)
+            return (rnd(bc, h, q, p), dt, rnd(bc, g, q, n, scale=n**-0.5),
+                    rnd(bc, g, q, n, scale=n**-0.5), a,
+                    torch.randn((h,), generator=gen, device="cuda"))
+
+        args = [inputs() for _ in range(copies)]
+        got = ssd_intra_chunk(*args[0])
+        want = ssd_intra_chunk_ref(*args[0])
+        torch.cuda.synchronize()
+        tol = SSD_TOL[str(dtype).removeprefix("torch.")]
+        errs = [(g_.float() - w_.float()).abs() for g_, w_ in zip(got, want)]
+        ok = all(bool(torch.isfinite(g_.float()).all()) for g_ in got) and all(
+            bool((e <= t + t * w_.float().abs()).all())
+            for e, w_, t in zip(errs, want, (tol, 1e-4, 1e-4)))
+        ms = device_ms([lambda a=a: ssd_intra_chunk(*a) for a in args])
+        plain_ms = device_ms([lambda a=a: ssd_intra_chunk_ref(*a) for a in args])
+        host_ms = eager_ms(lambda: ssd_intra_chunk(*args[0]))
+        bms, by = bound_ms(nbytes, ops, torch.float32)
+        print(f"ssd {label} BC={bc} H={h} Q={q} P={p} G={g} N={n} {dtype}: max_abs_err y "
+              f"{errs[0].max().item():.3e} state {errs[1].max().item():.3e} cum "
+              f"{errs[2].max().item():.3e} tol={tol:g} {'ok' if ok else 'FAILED'}; device kernel "
+              f"{ms:.4f} ms (eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
+              f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP fp32)",
+              flush=True)
+        if not ok:
+            fail(f"ssd {label} {dtype} disagrees with its plain version")
+        if "ssd" not in results:
+            results["ssd"] = dict(max_abs_err=errs[0].max().item(), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bms, bound_by=by, library_ms=None)
+        del args, got, want
+
+    # the chunked SSD through the kernel against the naive recurrence, fp32
+    b, s, h, p, g, n = 1, 512, 64, 64, 1, 128
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    dt = torch.rand((b, s, h), generator=gen, device="cuda") * 0.19 + 0.01
+    a = -(torch.rand((h,), generator=gen, device="cuda") + 0.5)
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device="cuda") * n**-0.5
+              for _ in range(2))
+    d_skip = torch.randn((h,), generator=gen, device="cuda")
+    s0 = torch.randn((b, h, n, p), generator=gen, device="cuda")
+    ry, rs = ssd_ref(x, dt, a, bm, cm, d_skip, initial_state=s0)
+    for recurrence in ("scan", "associative"):
+        y, final = ssd_chunked_cuda(x, dt, a, bm, cm, d_skip, chunk=256, initial_state=s0,
+                                    recurrence=recurrence)
+        torch.cuda.synchronize()
+        ey = ((y - ry).abs() / (1 + ry.abs())).max().item()
+        es = ((final - rs).abs() / (1 + rs.abs())).max().item()
+        ok = ey <= 2e-3 and es <= 2e-3
+        print(f"ssd_chunked_cuda recurrence={recurrence} B={b} S={s} H={h} chunk 256 fp32 vs "
+              f"the naive recurrence: max err/(1+|ref|) y {ey:.3e} state {es:.3e} tol 2e-3 "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"ssd_chunked_cuda recurrence={recurrence} disagrees with ssd_ref")
+
+
+# RMSNorm: the same fp32 value rounded once to x's dtype; the fp32 sum of
+# squares in another order and rsqrtf move it by an fp32 ulp or two,
+# which can move the bf16 rounding by one bf16 ulp (2**-7 relative).
+RMS_TOL = {"bfloat16": (1e-5, 2**-7), "float32": (1e-6, 1e-5)}
+
+
+def run_rmsnorm(gen, results):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    d, eps = 4096, 1e-5
+    for rows in (8, 256):  # a decode step's rows (the record's case), a prefill chunk's
+        for dtype in (torch.bfloat16, torch.float32):
+            elem = torch.tensor([], dtype=dtype).element_size()
+            nbytes = 2 * rows * d * elem + 4 * d
+            copies = min(64, max(1, -(-int(1.3 * L2_BYTES) // nbytes)))
+            xs = [(torch.randn((rows, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+                  for _ in range(copies)]
+            scale = torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1
+            got, want = rmsnorm(xs[0], scale, eps), rmsnorm_ref(xs[0], scale, eps)
+            torch.cuda.synchronize()
+            atol, rtol = RMS_TOL[str(dtype).removeprefix("torch.")]
+            err = (got.float() - want.float()).abs()
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (err <= atol + rtol * want.float().abs()).all())
+            ms = device_ms([lambda x=x: rmsnorm(x, scale, eps) for x in xs])
+            plain_ms = device_ms([lambda x=x: rmsnorm_ref(x, scale, eps) for x in xs])
+            w = scale.to(dtype)  # F.rms_norm takes its weight in x's dtype
+            lib_ms = device_ms([lambda x=x: F.rms_norm(x, (d,), w, eps) for x in xs])
+            host_ms = eager_ms(lambda: rmsnorm(xs[0], scale, eps))
+            bms, by = bound_ms(nbytes, 4 * rows * d, dtype)
+            print(f"rmsnorm rows={rows} d={d} {dtype}: max_abs_err={err.max().item():.3e} "
+                  f"{'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms (eager call "
+                  f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
+            if not ok:
+                fail(f"rmsnorm rows={rows} {dtype} disagrees with its plain version")
+            if "rmsnorm" not in results:
+                results["rmsnorm"] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            del xs
+
+
 # ---------------------------------------------------------------------------
 # Engine phase and end-to-end check
 # ---------------------------------------------------------------------------
 
+NO_LAUNCHES = {"decode_attention": 0, "emit_norm_logits": 0, "attention": 0, "ssd": 0,
+               "rmsnorm": 0}
+
 PROMPT_LENS = [17, 600, 128, 255, 64, 383, 511, 31, 129, 450, 200, 97]
 
 
-def run_engine(cfg, params, attn_impl):
-    """Serve the 12 requests; returns (their out_tokens, the launch
-    counts of the run)."""
+def run_engine(cfg, params, label, want, **serve):
+    """Serve the 12 requests under ``ServeConfig(**serve)``; the launch
+    counters, zeroed just before the run and read just after, must equal
+    ``want(decode steps, prefill calls)``.  Returns the out_tokens and
+    the launch counts of the run."""
     import numpy as np
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    scfg = ServeConfig(max_batch=8, max_len=1024, prefill_chunk=128, max_new_tokens=32,
-                       attn_impl=attn_impl)
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, **serve)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
 
@@ -437,22 +597,22 @@ def run_engine(cfg, params, attn_impl):
     if any(len(r.out_tokens) != scfg.max_new_tokens for r in reqs):
         fail("a request stopped short of its budget")
     chunks = len(spent["_prefill"])
-    want = {"decode_attention": steps * cfg.num_layers, "emit_norm_logits": steps,
-            "attention": chunks * cfg.num_layers if attn_impl == "flash" else 0}
-    if launches != want:
-        fail(f"attn_impl={attn_impl}: launch counts {launches}, expected {want} for {steps} "
-             f"decode steps and {chunks} prefill chunks")
+    expected = want(steps, chunks)
+    if launches != expected:
+        fail(f"{label}: launch counts {launches}, expected {expected} for {steps} "
+             f"decode steps and {chunks} prefill calls")
     tokens = sum(len(r.out_tokens) for r in reqs)
     t = sorted(ttft.values())
-    print(f"engine attn_impl={attn_impl} olmo-1b full width ({cfg.num_layers} layers, d "
+    print(f"engine {label} {cfg.name} full width ({cfg.num_layers} layers, d "
           f"{cfg.d_model}, V {cfg.vocab_size}, {cfg.dtype}): {len(reqs)} requests, prompts "
           f"{min(PROMPT_LENS)}-{max(PROMPT_LENS)}, {tokens} tokens, {steps} decode steps in "
           f"{wall:.3f} s: {tokens / wall:.1f} tok/s; TTFT p50 {statistics.median(t) * 1e3:.1f} ms, "
           f"max {t[-1] * 1e3:.1f} ms; launches {launches}", flush=True)
     dec, pre = spent["_decode"], spent["_prefill"]
-    print(f"engine attn_impl={attn_impl} time: {len(dec)} decode steps, p50 "
+    print(f"engine {label} time: {len(dec)} decode steps, p50 "
           f"{statistics.median(dec) * 1e3:.2f} ms, total {sum(dec):.3f} s; {chunks} prefill "
-          f"chunks (128 tokens), p50 {statistics.median(pre) * 1e3:.2f} ms, total "
+          f"calls (chunks of {scfg.prefill_chunk} tokens and tails), p50 "
+          f"{statistics.median(pre) * 1e3:.2f} ms, total "
           f"{sum(pre):.3f} s; rest (host bookkeeping, sampling, slot copies) "
           f"{wall - sum(dec) - sum(pre):.3f} s", flush=True)
     return [r.out_tokens for r in reqs], launches
@@ -589,6 +749,119 @@ def run_prefill_end_to_end(cfg, params):
             fail(f"end-to-end prefill {dtype}: greedy tokens differ")
 
 
+def run_ssm_end_to_end(cfg, params):
+    """Mamba2-1.3B as served: a full prefill chunk of 256 tokens, a ragged
+    tail of 37 and one decode step (B=4), with the kernels
+    (``kernels="cuda"``: SSD, RMSNorm, emit) and with ``"plain"``, each
+    path on its own cache from empty, in fp32 (params upcast) and in bf16
+    (as served).
+
+    fp32: the two paths compute the same function with fp32 sums in other
+    orders, and 48 random-weight blocks carry a difference of a few ulps
+    at the first block into the logits (the gated norm divides by each
+    row's RMS).  D32 measures that for the plain path itself: the
+    distance, per row, between the plain logits and those of the kernel
+    route run with every kernel swapped for its plain version (the
+    registry's plain ``ssd``, ``rmsnorm`` and ``emit_norm_logits``: the
+    same function as ``"plain"``, other orders of sums).  Allowed: 2 D32,
+    and at least 1e-4 of the row's largest |logit|.  bf16: the kernel path
+    rounds at other places (the intra-chunk y is rounded to bf16 before
+    the inter-chunk term is added, as the JAX wrapper does; the emit
+    kernel rounds the normalised x and each logit); with D the largest
+    distance, per row, between the plain bf16 logits and the plain fp32
+    ones (what serving in bf16 moves them), two bf16 paths that each lie
+    within D of the fp32 result lie within 2 D of each other: allowed 2 D.
+    In both, greedy tokens must agree wherever the plain top-1 beats its
+    top-2 by more than twice the allowance."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import map_tree
+
+    b, layers = 4, cfg.num_layers
+    pieces = ((0, 256), (256, 293))
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, 294)), device="cuda")
+    lengths = torch.full((b,), 293, dtype=torch.int32, device="cuda")
+    counted = {"cuda": (dict(NO_LAUNCHES, ssd=layers, rmsnorm=layers),
+                        dict(NO_LAUNCHES, rmsnorm=layers, emit_norm_logits=1))}
+    logits = {}
+
+    def serve(p, c_cfg, mode, key):
+        """Prefill the pieces and decode once on a fresh cache; record the
+        logits of each and check the launches."""
+        cache = T.init_cache(c_cfg, b, 1024, device="cuda")
+        prefill_want, decode_want = counted.get(key[0], (NO_LAUNCHES, NO_LAUNCHES))
+        for lo, hi in pieces:
+            K.reset_launches()
+            logits[key + (lo,)], _ = T.prefill_step(p, cache, c_cfg, tokens=toks[:, lo:hi],
+                                                    pos=lo, kernels=mode)
+            torch.cuda.synchronize()
+            if K.LAUNCHES != prefill_want:
+                fail(f"mamba prefill {key}: launches {K.LAUNCHES}, expected {prefill_want}")
+        K.reset_launches()
+        logits[key + ("decode",)], _ = T.decode_step(p, cache, c_cfg, tokens=toks[:, 293],
+                                                     lengths=lengths, kernels=mode)
+        torch.cuda.synchronize()
+        if K.LAUNCHES != decode_want:
+            fail(f"mamba decode {key}: launches {K.LAUNCHES}, expected {decode_want}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = map_tree(lambda t: t.to(torch.float32) if dtype == torch.float32 else t, params)
+        c_cfg = cfg.with_overrides(dtype=dtype)
+        for mode in ("cuda", "plain"):
+            serve(p, c_cfg, mode, (mode, dtype))
+        if dtype == torch.float32:  # the kernel route, every kernel's plain version
+            saved = dict(K._CUDA_IMPLS)
+            K._CUDA_IMPLS.update({op: K._PLAIN_IMPLS[op]
+                                  for op in ("ssd", "rmsnorm", "emit_norm_logits")})
+            try:
+                serve(p, c_cfg, "cuda", ("route", dtype))
+            finally:
+                K._CUDA_IMPLS.clear()
+                K._CUDA_IMPLS.update(saved)
+        del p
+
+    def row_max(x):
+        return x.abs().amax(dim=-1, keepdim=True)
+
+    for step in (0, 256, "decode"):
+        what = {0: "prefill chunk [0, 256)", 256: "ragged tail [256, 293)",
+                "decode": "decode step at 293"}[step]
+        ref32 = logits["plain", torch.float32, step]
+        for dtype in (torch.float32, torch.bfloat16):
+            got, want = logits["cuda", dtype, step], logits["plain", dtype, step]
+            if dtype == torch.float32:
+                drift = row_max(logits["route", dtype, step] - want)
+                tol = torch.maximum(2 * drift, 1e-4 * row_max(want))
+                note = (f"D32 per row {[f'{x:.2e}' for x in drift.squeeze(-1).tolist()]}, "
+                        f"kernels vs the route's plain versions "
+                        f"{row_max(got - logits['route', dtype, step]).max().item():.3e}")
+            else:
+                drift = row_max(want - ref32)
+                tol = 2 * drift
+                note = (f"bf16 kernels vs fp32 plain: "
+                        f"{(row_max(got - ref32) / drift).max().item():.3f} x the bf16 plain "
+                        f"path's own drift D")
+            err = (got - want).abs()
+            worst = (err / tol).max().item()
+            top2 = want.topk(2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > 2 * tol.squeeze(-1)
+            if dtype == torch.float32:
+                decided = torch.ones_like(decided)
+            same = got.argmax(-1) == want.argmax(-1)
+            print(f"end-to-end mamba2-1.3b {what} kernels vs plain, {dtype} (B={b}): "
+                  f"max_abs_err={err.max().item():.3e} worst/allowed={worst:.3f}; greedy tokens "
+                  f"equal in {int(same.sum())}/{b} rows, {int(decided.sum())} compared; {note}",
+                  flush=True)
+            if not bool(torch.isfinite(got).all()) or worst > 1:
+                fail(f"end-to-end mamba {what} {dtype}: kernel logits disagree with the plain path")
+            if not bool(same[decided].all()):
+                fail(f"end-to-end mamba {what} {dtype}: greedy tokens differ")
+
+
 def main() -> int:
     try:
         import torch
@@ -629,13 +902,24 @@ def main() -> int:
     run_decode_attention(gen, results)
     run_emit(gen, results)
     run_flash(gen, results)
+    run_ssd(gen, results)
+    run_rmsnorm(gen, results)
     torch.cuda.empty_cache()
 
     # 3. Engine phase
     cfg = get_config("olmo-1b")
     params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")).params
-    dense_tokens, launches = run_engine(cfg, params, "dense")
-    flash_tokens, flash_launches = run_engine(cfg, params, "flash")
+    layers = cfg.num_layers
+
+    def olmo_want(flash):
+        return lambda steps, chunks: dict(
+            NO_LAUNCHES, decode_attention=steps * layers, emit_norm_logits=steps,
+            attention=chunks * layers if flash else 0)
+
+    dense_tokens, launches = run_engine(cfg, params, "attn_impl=dense", olmo_want(False),
+                                        prefill_chunk=128, attn_impl="dense")
+    flash_tokens, flash_launches = run_engine(cfg, params, "attn_impl=flash", olmo_want(True),
+                                              prefill_chunk=128, attn_impl="flash")
     launches["flash_attention"] = flash_launches["attention"]
     same = sum(a == b for x, y in zip(dense_tokens, flash_tokens) for a, b in zip(x, y))
     total = sum(len(x) for x in dense_tokens)
@@ -646,6 +930,22 @@ def main() -> int:
     # 4. End-to-end checks
     run_decode_end_to_end(cfg, params)
     run_prefill_end_to_end(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    # 5. Mamba2-1.3B: engine phase and end-to-end check.  prefill_chunk
+    # is the config's SSD chunk, so a full prefill chunk is one SSD chunk
+    # of the published Q = 256; a ragged tail is prefilled unpadded.
+    cfg = get_config("mamba2-1.3b")
+    params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")).params
+    layers = cfg.num_layers
+    _, ssm_launches = run_engine(
+        cfg, params, "kernels=auto", prefill_chunk=cfg.ssm.chunk_size,
+        want=lambda steps, chunks: dict(NO_LAUNCHES, ssd=chunks * layers,
+                                        rmsnorm=(steps + chunks) * layers,
+                                        emit_norm_logits=steps))
+    launches["ssd"], launches["rmsnorm"] = ssm_launches["ssd"], ssm_launches["rmsnorm"]
+    run_ssm_end_to_end(cfg, params)
 
     source = {
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -654,6 +954,9 @@ def main() -> int:
                              "src/repro/kernels/emit_norm_logits/kernel.py:45"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:32"),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:29"),
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:18"),
     }
     record = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -14,6 +14,11 @@ checks its operands and launches the kernel); the CUDA sources are under
   online-softmax attention, causal or not, GQA, with chunked prefill's
   ``q_offset`` and ``kv_len``; ``layers.attention(impl="flash")`` and
   through it ``forward`` and ``prefill_step`` dispatch it.
+* ``ssd`` -- Mamba-2 SSD: the intra-chunk kernel plus the cross-chunk
+  recurrence (``ssd_chunked_cuda``); ``models.ssm.ssm_block`` dispatches
+  it on every prefill chunk and full-sequence forward.
+* ``rmsnorm`` -- row-wise RMSNorm; ``ssm_block`` dispatches it for the
+  Mamba-2 gated norm.  Block norms stay plain PyTorch in every mode.
 
 Model code selects implementations through :func:`get_impl` driven by the
 ``kernels`` config knob (``"plain" | "cuda" | "auto"``).  ``"auto"``
@@ -53,6 +58,8 @@ _CUDA_IMPLS = {
     "attention": (
         "repro_torch.kernels.flash_attention.ops", "flash_attention"
     ),
+    "ssd": ("repro_torch.kernels.ssd.ops", "ssd_chunked_cuda"),
+    "rmsnorm": ("repro_torch.kernels.rmsnorm.ops", "rmsnorm"),
 }
 _PLAIN_IMPLS = {
     "decode_attention": (
@@ -64,6 +71,8 @@ _PLAIN_IMPLS = {
     "attention": (
         "repro_torch.kernels.flash_attention.ref", "flash_attention_ref"
     ),
+    "ssd": ("repro_torch.kernels.ssd.ref", "ssd_chunked_ref"),
+    "rmsnorm": ("repro_torch.kernels.rmsnorm.ref", "rmsnorm_ref"),
 }
 
 OPS = tuple(_CUDA_IMPLS)
@@ -119,7 +128,7 @@ def get_impl(op: str, mode: str = "auto"):
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "emit_norm_logits", "flash_attention")
+SOURCES = ("decode_attention", "emit_norm_logits", "flash_attention", "ssd", "rmsnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,22 +1,25 @@
-"""Decoder (PyTorch port of ``repro.models.transformer``), attention path.
+"""Decoder (PyTorch port of ``repro.models.transformer``).
 
 Layers are grouped into a repeating *period*; parameters are stacked
 over ``num_layers / period`` groups, and where the JAX package scans the
 stack this port runs a Python loop over the groups.
 
-Ported so far: dense decoders whose blocks are self-attention + dense
-MLP (olmo-1b, qwen1.5-4b, qwen3-32b, internlm2-20b, ...).  Mamba, MoE
-and cross-attention blocks raise ``NotImplementedError`` (ROADMAP A9).
+Ported so far: blocks of self-attention or Mamba-2 (``models.ssm``),
+each with a dense MLP or none -- dense decoders (olmo-1b, qwen1.5-4b,
+qwen3-32b, internlm2-20b, ...) and pure SSMs (mamba2-1.3b).  MoE and
+cross-attention blocks and embedding inputs raise
+``NotImplementedError`` (ROADMAP A9).
 
 Step kinds:
   * ``forward``      -- logits for full sequences.
   * ``prefill_step`` -- one prompt chunk written into the KV cache.
   * ``decode_step``  -- one token per sequence against the KV cache.
 
-Unlike the JAX package's functional ``.at[].set`` updates, the KV cache
-is updated **in place**: ``prefill_step`` writes the chunk's rows and
+Unlike the JAX package's functional ``.at[].set`` updates, the cache
+is updated **in place**: ``prefill_step`` writes the chunk's K/V rows and
 ``decode_step`` one row per sequence into the cache tensors it is given,
-and returns that same cache.
+a Mamba block overwrites its conv and SSD state, and both return that
+same cache.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import get_impl, resolve_mode
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 PyTree = Any
 
@@ -82,7 +86,7 @@ def _check_ported(cfg: ArchConfig, plans: list[BlockPlan]) -> None:
     if cfg.embeds_input:
         raise NotImplementedError(f"embeddings input ({cfg.name}) {_NOT_PORTED}")
     for plan in plans:
-        if plan.mixer != "attn":
+        if plan.mixer not in ("attn", "mamba"):
             raise NotImplementedError(f"{plan.mixer!r} blocks ({cfg.name}) {_NOT_PORTED}")
         if plan.ffn not in ("dense", "none"):
             raise NotImplementedError(f"{plan.ffn!r} blocks ({cfg.name}) {_NOT_PORTED}")
@@ -105,8 +109,11 @@ def model_layout(cfg: ArchConfig) -> PyTree:
     for i, plan in enumerate(plans):
         blk: dict[str, PyTree] = {
             "norm_mixer": L.make_norm_layout(cfg.norm, cfg.d_model, stacked),
-            "attn": L.attn_layout(cfg, stacked),
         }
+        if plan.mixer == "attn":
+            blk["attn"] = L.attn_layout(cfg, stacked)
+        else:
+            blk["mamba"] = S.ssm_layout(cfg, cfg.ssm, stacked)
         if plan.ffn != "none":
             blk["norm_ffn"] = L.make_norm_layout(cfg.norm, cfg.d_model, stacked)
             blk["mlp"] = L.mlp_layout(cfg, stacked=stacked)
@@ -128,25 +135,37 @@ def model_layout(cfg: ArchConfig) -> PyTree:
 def cache_layout(cfg: ArchConfig, batch: int, max_len: int) -> PyTree:
     """Abstract cache: dict mirroring blocks, leaves ``meta`` tensors.
 
-    Attention: K/V (groups, B, Smax, KV, dh).
+    Attention: K/V (groups, B, Smax, KV, dh).  Mamba: conv (groups, B,
+    W-1, conv_dim) in ``cfg.dtype`` and state (groups, B, H, N, P) fp32.
     """
     groups = cfg.num_layers // effective_period(cfg)
     plans = block_plans(cfg)
     _check_ported(cfg, plans)
-    shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        f"block{i}": {
-            "k": torch.empty(shape, dtype=cfg.dtype, device="meta"),
-            "v": torch.empty(shape, dtype=cfg.dtype, device="meta"),
-        }
-        for i in range(len(plans))
-    }
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    caches: dict[str, PyTree] = {}
+    for i, plan in enumerate(plans):
+        if plan.mixer == "attn":
+            shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            caches[f"block{i}"] = {"k": meta(shape, cfg.dtype), "v": meta(shape, cfg.dtype)}
+        else:
+            _, num_heads, conv_dim, _ = S.ssm_dims(cfg, cfg.ssm)
+            caches[f"block{i}"] = {
+                "conv": meta((groups, batch, cfg.ssm.conv_width - 1, conv_dim), cfg.dtype),
+                "state": meta(
+                    (groups, batch, num_heads, cfg.ssm.state_dim, cfg.ssm.head_dim),
+                    torch.float32,
+                ),
+            }
+    return caches
 
 
 def init_cache(
     cfg: ArchConfig, batch: int, max_len: int, device: str | torch.device = "cuda"
 ) -> PyTree:
-    """A zeroed KV cache on ``device``; ``prefill_step`` and
+    """A zeroed cache on ``device``; ``prefill_step`` and
     ``decode_step`` update it in place."""
     device = resolve_device(device)
     return {
@@ -164,8 +183,10 @@ def _group(tree: PyTree, g: int) -> PyTree:
 
 
 def _num_groups(params) -> int:
-    blk = next(iter(params["blocks"].values()))
-    return blk["attn"]["wq"].shape[0]
+    tree = params["blocks"]
+    while isinstance(tree, dict):  # any leaf: all are stacked over the groups
+        tree = next(v for v in tree.values() if not isinstance(v, dict) or v)
+    return tree.shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -250,21 +271,34 @@ def _apply_group(
     q_chunk=512, kv_chunk=1024, causal_skip=None, kernels="plain",
 ):
     """Apply one period group.  Returns (x, kv) where kv maps each block
-    to its full-sequence K/V when ``collect_kv`` (forward only)."""
+    to its full-sequence K/V (a Mamba block: its conv and SSD state) when
+    ``collect_kv`` (forward only).
+
+    A Mamba block writes its new conv and SSD state into the group's
+    cache view in place, as attention writes its K/V rows."""
     kv_out: dict[str, PyTree] = {}
     for i, plan in enumerate(plans):
         name = f"block{i}"
         blk = group_params[name]
+        cache_i = None if group_cache is None else group_cache[name]
         h = _norm(cfg, blk.get("norm_mixer"), x)
-        out, kv = _self_attn(
-            blk["attn"], h, cfg, positions=positions,
-            cache=None if group_cache is None else group_cache[name],
-            cache_pos=cache_pos, kv_len=kv_len, attn_impl=attn_impl,
-            q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
-            kernels=kernels,
-        )
-        if collect_kv:
-            kv_out[name] = {"k": kv[0], "v": kv[1]}
+        if plan.mixer == "attn":
+            out, kv = _self_attn(
+                blk["attn"], h, cfg, positions=positions, cache=cache_i,
+                cache_pos=cache_pos, kv_len=kv_len, attn_impl=attn_impl,
+                q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
+                kernels=kernels,
+            )
+            if collect_kv:
+                kv_out[name] = {"k": kv[0], "v": kv[1]}
+        else:  # mamba
+            out, c_new = S.ssm_block(blk["mamba"], h, cfg, cfg.ssm, cache=cache_i,
+                                     kernels=kernels)
+            if cache_i is not None:
+                cache_i["conv"].copy_(c_new["conv"])
+                cache_i["state"].copy_(c_new["state"])
+            if collect_kv:
+                kv_out[name] = c_new
         x = x + out
         if plan.ffn != "none":
             h = _norm(cfg, blk.get("norm_ffn"), x)
@@ -288,9 +322,11 @@ def forward(
     """Full-sequence forward.  Returns (logits, caches|None, aux).
 
     ``collect_kv`` also returns each block's K/V stacked over groups,
-    (groups, B, S, KV, dh), zero-padded along S to ``cache_pad_to``.
+    (groups, B, S, KV, dh), zero-padded along S to ``cache_pad_to`` (a
+    Mamba block: its conv and SSD state, stacked, not padded).
     ``kernels`` (None inherits ``cfg.kernels``) picks, under
-    ``attn_impl="flash"``, the flash kernel or its plain version.
+    ``attn_impl="flash"``, the flash kernel or its plain version, and
+    for Mamba blocks the SSD and RMSNorm kernels or their plain versions.
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
@@ -316,9 +352,9 @@ def forward(
         caches = {}
         for name in kvs[0]:
             caches[name] = {}
-            for key in ("k", "v"):
+            for key in kvs[0][name]:
                 t = torch.stack([kv[name][key] for kv in kvs])
-                if cache_pad_to is not None and t.shape[2] < cache_pad_to:
+                if key in ("k", "v") and cache_pad_to is not None and t.shape[2] < cache_pad_to:
                     pad = t.new_zeros(t.shape[:2] + (cache_pad_to - t.shape[2],) + t.shape[3:])
                     t = torch.cat([t, pad], dim=2)
                 caches[name][key] = t
@@ -392,9 +428,10 @@ def decode_step(
 
     ``kernels`` (None inherits ``cfg.kernels``) selects the per-op
     implementations (see ``repro_torch.kernels``): ``"cuda"`` runs the
-    fused decode-attention and emit kernels, ``"plain"`` the PyTorch
-    versions, ``"auto"`` the kernels on a CUDA device.  ``attn_impl``
-    applies where the decode-attention kernel does not run."""
+    fused decode-attention and emit kernels (and each Mamba block's gated
+    norm through the RMSNorm kernel), ``"plain"`` the PyTorch versions,
+    ``"auto"`` the kernels on a CUDA device.  ``attn_impl`` applies where
+    the decode-attention kernel does not run."""
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
     _check_ported(cfg, plans)
@@ -418,7 +455,8 @@ def decode_step(
 
 def _cache_seq_len(caches):
     for blk in caches.values():
-        return blk["k"].shape[2]
+        if "k" in blk:
+            return blk["k"].shape[2]
     return None
 
 
@@ -440,8 +478,14 @@ def prefill_step(
     ``kernels`` (None inherits ``cfg.kernels``) picks, under
     ``attn_impl="flash"``, the flash kernel (``"cuda"``, or ``"auto"`` on
     a CUDA device) or its plain version; the chunk's queries sit at
-    ``q_offset = pos`` and see ``kv_len = pos + C`` keys.  The other ops
-    of prefill run plain PyTorch in every mode.
+    ``q_offset = pos`` and see ``kv_len = pos + C`` keys.  Mamba blocks
+    run their SSD and gated norm through the SSD and RMSNorm kernels
+    under the same mode.  The other ops of prefill run plain PyTorch in
+    every mode.
+
+    A Mamba block folds every token of the chunk into its conv and SSD
+    state, pad tokens included: a ragged tail of an SSM model is
+    prefilled unpadded (see ``serve.engine``).
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)

@@ -8,6 +8,12 @@ sampling and retirement run in host Python between steps.
   * admit: a new request prefills in chunks (B=1, ragged tail padded to
     a single masked chunk) into a fresh single-slot cache, which is then
     copied into a free slot of the batch cache in place.
+  * SSM models (any Mamba block) prefill the ragged tail **unpadded**, as
+    a chunk of exactly the remaining tokens: attention masks pad rows
+    out, but a Mamba block folds every token it is given into its conv
+    and SSD state, so pad tokens would corrupt the state that decoding
+    starts from (the JAX package's ``Engine`` pads here, and its SSM
+    tokens after a padded tail part from a token-by-token decode).
   * retire: slots retire on EOS, exhausted budget, or the ``max_len``
     cache boundary -- including on the prefill-sampled first token.
   * ``ServeConfig.attn_impl`` (``"dense" | "chunked" | "flash"``) picks
@@ -121,6 +127,7 @@ class _EngineBase:
         # Lifecycle event log: load sheds, cancellations, expiries.
         self.events: list[dict] = []
         self._prefill = partial(T.prefill_step, cfg=cfg, attn_impl=scfg.attn_impl)
+        self._ssm = any(p.mixer == "mamba" for p in T.block_plans(cfg))
 
     # -- public API ----------------------------------------------------------
 
@@ -239,7 +246,9 @@ class _EngineBase:
         Full ``prefill_chunk``-sized chunks stream through the cache; the
         ragged tail (``plen % prefill_chunk``) is padded to one masked
         chunk whose logits are read at the last real position, clamped
-        to the cache end.  Samples the first token (ngen=0) and applies
+        to the cache end -- or, for an SSM model, prefilled unpadded (a
+        tail longer than the SSD chunk is cut into a multiple of it and
+        the rest, so that each piece divides into SSD chunks).  Samples the first token (ngen=0) and applies
         retirement to it: EOS, a budget of 1, or a prompt at the
         ``max_len`` boundary complete without occupying a batch slot.
         Returns ``(single_cache, done)``.
@@ -256,7 +265,16 @@ class _EngineBase:
                 self.params, single, tokens=chunk.long(), pos=c * ck
             )
         rem = plen - full
-        if rem:
+        if rem and self._ssm:
+            cs = self.cfg.ssm.chunk_size
+            cuts = [full, plen - rem % cs, plen] if rem > cs else [full, plen]
+            for lo, hi in zip(cuts, cuts[1:]):
+                if hi > lo:
+                    piece = torch.as_tensor(prompt[None, lo:hi], device=self.device)
+                    logits, single = self._prefill(
+                        self.params, single, tokens=piece.long(), pos=lo
+                    )
+        elif rem:
             width = min(ck, self.scfg.max_len - full)
             tail = np.zeros((1, width), np.int64)
             tail[0, :rem] = prompt[full:]

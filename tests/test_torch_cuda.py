@@ -21,6 +21,10 @@ from repro_torch.kernels.emit_norm_logits.ops import emit_norm_logits
 from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bhsd
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd.ops import ssd_chunked_cuda, ssd_intra_chunk
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref, ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -107,7 +111,8 @@ def test_wrappers_raise_rather_than_fall_back():
         flash_attention(q, q.cpu(), q.cpu(), causal=True)
     with pytest.raises(TypeError, match="int32"):
         flash_attention(q, q, q, causal=True, kv_len=torch.tensor([3], device="cuda"))
-    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 0}
+    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 0,
+                          "ssd": 0, "rmsnorm": 0}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -151,7 +156,8 @@ def test_decode_step_kernels_match_plain():
     got, c_got = T.decode_step(params, cache, cfg, tokens=tokens, lengths=lengths)
     want, c_want = T.decode_step(params, copy, cfg, tokens=tokens, lengths=lengths,
                                  kernels="plain")
-    assert K.LAUNCHES == {"decode_attention": 2, "emit_norm_logits": 1, "attention": 0}
+    assert K.LAUNCHES == {"decode_attention": 2, "emit_norm_logits": 1, "attention": 0,
+                          "ssd": 0, "rmsnorm": 0}
     top = want.abs().amax(-1, keepdim=True)
     assert ((got - want).abs() <= 4 * torch.exp2(torch.floor(torch.log2(top)) - 7)).all()
     # the row written at each position is the same on both paths (layer 0)
@@ -238,4 +244,149 @@ def test_prefill_flash_matches_plain():
         want, _ = T.prefill_step(params, caches[1], cfg, tokens=toks, pos=pos,
                                  attn_impl="flash", logits_at=at, kernels="plain")
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 4}
+    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 4,
+                          "ssd": 0, "rmsnorm": 0}
+
+
+# SSD intra-chunk kernel.  fp32: sums of up to 256 products in another
+# order, and the chunk's cumsum scanned in another order (the exponent
+# of each decay moves by a few fp32 ulps of |cum| <= ~40): 1e-4.  bf16
+# y: the same fp32 value rounded once to bf16, which one fp32 ulp can
+# move by one bf16 ulp: 2 bf16 ulps at magnitude 1, 1.6e-2.
+SSD_Y_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-4}
+
+
+def _ssd_args(gen, bc, h, q, p, g, n, dtype):
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    x = rnd(bc, h, q, p)
+    dt = torch.rand((bc, h, q), generator=gen, device="cuda") * 0.19 + 0.01
+    b, c = rnd(bc, g, q, n, scale=n**-0.5), rnd(bc, g, q, n, scale=n**-0.5)
+    a = -(torch.rand((h,), generator=gen, device="cuda") + 0.5)
+    d_skip = torch.randn((h,), generator=gen, device="cuda")
+    return x, dt, b, c, a, d_skip
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("bc,h,q,p,g,n", [
+    (2, 8, 256, 64, 1, 128),   # Mamba2-1.3B's widths, a full chunk
+    (3, 4, 37, 64, 1, 128),    # a ragged tail
+    (1, 8, 100, 32, 4, 48),    # G = 4, N not a multiple of the 16-deep step
+    (2, 4, 1, 80, 2, 40),      # one row; P over two column tiles
+    (1, 2, 130, 130, 1, 200),  # every edge ragged
+], ids=str)
+def test_ssd_intra_chunk_matches_plain(dtype, bc, h, q, p, g, n):
+    args = _ssd_args(_gen(6), bc, h, q, p, g, n, dtype)
+    y, state, cum = ssd_intra_chunk(*args)
+    wy, wstate, wcum = ssd_intra_chunk_ref(*args)
+    assert y.dtype == dtype and state.dtype == cum.dtype == torch.float32
+    tol = SSD_Y_TOL[dtype]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, wstate, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(cum, wcum, atol=1e-5, rtol=1e-5)
+    assert K.LAUNCHES["ssd"] == 1
+
+
+@pytest.mark.parametrize("recurrence", ["scan", "associative"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 128, 4, 64, 1, 128, 32), (1, 256, 8, 64, 2, 64, 64), (1, 512, 8, 64, 1, 128, 256),
+], ids=str)
+def test_ssd_chunked_cuda_matches_the_recurrence(recurrence, b, s, h, p, g, n, chunk):
+    """The chunked SSD through the kernel against the naive recurrence
+    (2e-3, as the JAX package holds its Pallas kernel) and against the
+    plain chunked form (1e-4), with an initial state."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = _gen(7)
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    dt = torch.rand((b, s, h), generator=gen, device="cuda") * 0.19 + 0.01
+    a = -(torch.rand((h,), generator=gen, device="cuda") + 0.5)
+    bm = torch.randn((b, s, g, n), generator=gen, device="cuda") * n**-0.5
+    cm = torch.randn((b, s, g, n), generator=gen, device="cuda") * n**-0.5
+    d_skip = torch.randn((h,), generator=gen, device="cuda")
+    s0 = torch.randn((b, h, n, p), generator=gen, device="cuda")
+    y, final = ssd_chunked_cuda(x, dt, a, bm, cm, d_skip, chunk=chunk, initial_state=s0,
+                                recurrence=recurrence)
+    ry, rfinal = ssd_ref(x, dt, a, bm, cm, d_skip, initial_state=s0)
+    torch.testing.assert_close(y, ry, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(final, rfinal, atol=2e-3, rtol=2e-3)
+    py, pfinal = ssd_chunked(x, dt, a, bm, cm, d_skip, chunk=chunk, initial_state=s0)
+    torch.testing.assert_close(y, py, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(final, pfinal, atol=1e-4, rtol=1e-4)
+    assert K.LAUNCHES["ssd"] == 1
+
+
+# RMSNorm: the same fp32 value rounded once to x's dtype; the fp32 sum of
+# squares in another order and rsqrtf move it by an fp32 ulp or two,
+# which can move the bf16 rounding by one bf16 ulp (2**-7 relative).
+RMS_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2**-7), torch.float32: dict(atol=1e-6, rtol=1e-5)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(8, 4096), (256, 4096), (2, 3, 40), (1, 1, 8)], ids=str)
+def test_rmsnorm_matches_plain(dtype, shape):
+    gen = _gen(8)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    scale = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.2 + 1
+    got = rmsnorm(x, scale, 1e-5)
+    want = rmsnorm_ref(x, scale, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), **RMS_TOL[dtype])
+    assert K.LAUNCHES["rmsnorm"] == 1
+
+
+def test_ssd_and_rmsnorm_wrappers_raise_rather_than_fall_back():
+    args = list(_ssd_args(_gen(9), 1, 4, 16, 8, 1, 16, torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_intra_chunk(args[0].transpose(2, 3).contiguous().transpose(2, 3), *args[1:])
+    with pytest.raises(TypeError):
+        ssd_intra_chunk(args[0], args[1].bfloat16(), *args[2:])
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_intra_chunk(*_ssd_args(_gen(9), 1, 4, 300, 8, 1, 16, torch.float32))
+    with pytest.raises(ValueError, match="on"):
+        ssd_intra_chunk(args[0], args[1].cpu(), *args[2:])
+    x = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(TypeError):
+        rmsnorm(x, torch.ones(64, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple"):
+        rmsnorm(torch.zeros(2, 12, device="cuda", dtype=torch.bfloat16),
+                torch.ones(12, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(torch.zeros(64, 2, device="cuda").T, torch.ones(64, device="cuda"))
+    assert K.LAUNCHES["ssd"] == K.LAUNCHES["rmsnorm"] == 0
+
+
+def test_ssm_prefill_and_decode_kernels_match_plain():
+    """A narrow Mamba-2 model: a chunk of 64, a ragged tail of 21, then a
+    decode step, with the kernels and with their plain versions; each
+    prefill call launches the SSD kernel once per layer, every call the
+    RMSNorm kernel once per layer."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    base = get_config("mamba2-1.3b")
+    cfg = base.with_overrides(
+        num_layers=2, d_model=256, vocab_size=1024, dtype=torch.float32,
+        ssm=base.ssm.__class__(state_dim=64, head_dim=32, expand=2, conv_width=4,
+                               chunk_size=64))
+    params = init_params(T.model_layout(cfg), seed=0, device="cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(1, 1024, size=(2, 86)), device="cuda")
+    caches = [T.init_cache(cfg, 2, 128, device="cuda") for _ in range(2)]
+    for lo, hi in ((0, 64), (64, 85)):
+        got, _ = T.prefill_step(params, caches[0], cfg, tokens=toks[:, lo:hi], pos=lo)
+        want, _ = T.prefill_step(params, caches[1], cfg, tokens=toks[:, lo:hi], pos=lo,
+                                 kernels="plain")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    lengths = torch.tensor([85, 85], dtype=torch.int32, device="cuda")
+    got, _ = T.decode_step(params, caches[0], cfg, tokens=toks[:, 85], lengths=lengths)
+    want, _ = T.decode_step(params, caches[1], cfg, tokens=toks[:, 85], lengths=lengths,
+                            kernels="plain")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for key in ("conv", "state"):
+        torch.testing.assert_close(caches[0]["block0"][key], caches[1]["block0"][key],
+                                   atol=1e-4, rtol=1e-4)
+    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 1, "attention": 0,
+                          "ssd": 4, "rmsnorm": 6}

@@ -13,6 +13,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, params_from_numpy
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -31,6 +32,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.decode_attention.ops" in mods
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops", "repro_torch.kernels.ssd.ref",
+            "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,7 +53,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_source_scan_finds_no_jax_or_repro_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 15 and PKG / "models" / "ssm.py" in files
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -72,6 +75,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         params_from_numpy({"w": torch.zeros(2).numpy()})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.resolve_device()
+    mamba = smoke_config(get_config("mamba2-1.3b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(mamba, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.init_ssm_cache(mamba, mamba.ssm, 2, mamba.dtype)
     params = init_params(layout, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(params, cfg, ServeConfig(max_batch=2, max_len=16))

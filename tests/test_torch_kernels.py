@@ -1,5 +1,7 @@
-"""The two ported kernels' plain versions against the JAX package, the
-wrappers' dispatch, and the kernel registry.
+"""The decode-path kernels' plain versions against the JAX package, the
+wrappers' dispatch, and the kernel registry (the flash kernel's plain
+version is in tests/test_torch_flash.py, the SSD and RMSNorm kernels'
+in tests/test_torch_ssm.py).
 
 Each plain version (``ref.py``) is held against the JAX ``ref.py`` and
 against the JAX ``ops.py`` wrapper run with ``interpret=True`` (the
@@ -23,6 +25,10 @@ from repro_torch.kernels.emit_norm_logits import ops as emit_ops
 from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -179,7 +185,15 @@ def test_wrappers_run_the_plain_version_on_cpu_without_counting():
     q = torch.randn(1, 5, 2, 32, generator=torch.Generator().manual_seed(2))
     got = fa_ops.flash_attention(q, q, q, causal=True, q_offset=3, kv_len=4)
     assert torch.equal(got, flash_attention_ref(q, q, q, causal=True, q_offset=3, kv_len=4))
-    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 0}
+    got = rms_ops.rmsnorm(x, torch.ones(32))
+    assert torch.equal(got, rmsnorm_ref(x, torch.ones(32)))
+    xs = torch.randn(2, 3, 5, 8, generator=torch.Generator().manual_seed(3))
+    dt, bc = torch.rand(2, 3, 5), torch.randn(2, 1, 5, 4)
+    got = ssd_ops.ssd_intra_chunk(xs, dt, bc, bc, -torch.ones(3), torch.ones(3))
+    want = ssd_intra_chunk_ref(xs, dt, bc, bc, -torch.ones(3), torch.ones(3))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 0,
+                          "ssd": 0, "rmsnorm": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -264,7 +278,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_library_path_follows_the_source(monkeypatch, tmp_path):
     names = {K.library_path(n).name for n in K.SOURCES}
-    assert len(names) == 3 and all(n.endswith(".so") for n in names)
+    assert len(names) == 5 and all(n.endswith(".so") for n in names)
     src = tmp_path / "decode_attention.cu"
     src.write_text("// edited\n")
     before = K.library_path("decode_attention")
