@@ -46,7 +46,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; fp32 outside them
+# dense bf16 tensor cores; fp32 outside them; fp32-accurate products on
+# the tensor cores (495 TFLOP/s of TF32 over the three products of a
+# 3xTF32 split)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 REPS = 21
 
 
@@ -106,6 +109,8 @@ def eager_ms(fn, reps: int = REPS) -> float:
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    """The least time of the work, in ms, and what bounds it; ``dtype``
+    (a torch dtype or a key of ``PEAK_OPS``) names the peak rate."""
     name = str(dtype).removeprefix("torch.")
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -267,7 +272,7 @@ def run_emit(gen, results):
                   f"max_abs_err={err.max().item():.3e} max_rel_err={rel:.3e} "
                   f"worst/allowed={worst:.3f} {'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms "
                   f"(eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, norm+matmul "
-                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})",
+                  f"{lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f}), bound {bms:.4f} ms ({by})",
                   flush=True)
             if not ok:
                 fail(f"emit_norm_logits {norm} tied={tied} {dtype} disagrees with its plain version")
@@ -388,16 +393,28 @@ SSD_TOL = {"bfloat16": 1.6e-2, "float32": 1e-4}
 
 
 def ssd_work(bc, h, q, p, g, n, elem):
-    """(bytes, operations) of one intra-chunk call: x, dt, B, C read once,
-    y, the fp32 state and cum written once; 2 operations per multiply-add
-    of the lower triangle of C.B^T (once per group: it does not depend on
-    the head) and of W.x (per head), and of the state product (per head).
-    The work is fp32 whatever x's dtype, so its peak is the fp32 rate."""
+    """(bytes, C.B^T operations, per-head operations) of one intra-chunk
+    call: x, dt, B, C read once, y, the fp32 state and cum written once;
+    2 operations per multiply-add of the lower triangle of C.B^T (once per
+    group: it does not depend on the head), and of W.x and of the state
+    product (per head)."""
     tri = q * (q + 1) // 2
     nbytes = elem * (2 * bc * h * q * p + 2 * bc * g * q * n) + 4 * (
         2 * bc * h * q + 2 * h + bc * h * n * p)
-    ops = bc * (2 * g * tri * n + h * (2 * tri * p + 2 * q * n * p))
-    return nbytes, ops
+    return nbytes, bc * 2 * g * tri * n, bc * h * (2 * tri * p + 2 * q * n * p)
+
+
+def ssd_bound_ms(nbytes, cb_ops, head_ops, dtype) -> tuple[float, str]:
+    """The least time of the SSD's work on the tensor cores.  The products
+    must be fp32-accurate.  bf16 x, B and C are exact as one bf16 term, so
+    C.B^T takes one bf16 product and W.x and the state product, whose fp32
+    weights need two bf16 terms (W = hi + lo), take two: the bf16 rate.
+    fp32 inputs take every product at the 3xTF32 rate."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return bound_ms(nbytes, cb_ops + 2 * head_ops, torch.bfloat16)
+    return bound_ms(nbytes, cb_ops + head_ops, "3xtf32")
 
 
 def run_ssd(gen, results):
@@ -416,7 +433,8 @@ def run_ssd(gen, results):
     ]
     for label, bc, h, q, p, g, n, dtype in cases:
         elem = torch.tensor([], dtype=dtype).element_size()
-        nbytes, ops = ssd_work(bc, h, q, p, g, n, elem)
+        nbytes, cb_ops, head_ops = ssd_work(bc, h, q, p, g, n, elem)
+        ops = cb_ops + head_ops
         copies = min(16, max(1, -(-int(1.3 * L2_BYTES) // nbytes)))  # together colder than L2
 
         def inputs():
@@ -441,13 +459,15 @@ def run_ssd(gen, results):
         ms = device_ms([lambda a=a: ssd_intra_chunk(*a) for a in args])
         plain_ms = device_ms([lambda a=a: ssd_intra_chunk_ref(*a) for a in args])
         host_ms = eager_ms(lambda: ssd_intra_chunk(*args[0]))
-        bms, by = bound_ms(nbytes, ops, torch.float32)
+        bms, by = ssd_bound_ms(nbytes, cb_ops, head_ops, dtype)
+        cuda_core_ms, _ = bound_ms(nbytes, ops, torch.float32)
         print(f"ssd {label} BC={bc} H={h} Q={q} P={p} G={g} N={n} {dtype}: max_abs_err y "
               f"{errs[0].max().item():.3e} state {errs[1].max().item():.3e} cum "
               f"{errs[2].max().item():.3e} tol={tol:g} {'ok' if ok else 'FAILED'}; device kernel "
               f"{ms:.4f} ms (eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
-              f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP fp32)",
-              flush=True)
+              f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP "
+              f"fp32-accurate on the tensor cores; {cuda_core_ms:.4f} ms at the fp32 CUDA-core "
+              f"rate)", flush=True)
         if not ok:
             fail(f"ssd {label} {dtype} disagrees with its plain version")
         if "ssd" not in results:

@@ -16,26 +16,33 @@
 // head's bytes over 3.35 TB/s (206 MB, ~61 us, at OLMo-1B's d=2048,
 // V=50304 in bf16).
 //
-// Design against that bound: every weight element is read once, with
-// 16-byte loads, and used for all B rows; the (B, d) hidden state is
-// tiny, so each block recomputes the norm into shared memory instead of
-// writing a normalised copy to device memory and reading it back.
-// Blocks own tiles of V; the last tile's edge is masked (V need not be
-// a multiple of the tile: OLMo's V = 50304 = 128 * 393).
-//   tied (V, d), bf16 (OLMo-1B's case): a warp owns 16 vocab rows and
-//   multiplies them with 8 batch rows at a time on the tensor cores
-//   (mma.sync m16n8k16, fp32 accumulation).  Done with FMAs, the
-//   conversions and shared-memory reads of this product kept the CUDA
-//   cores busy for 3x the bound (183 us on an H100 SXM at 700 W).
+// Design against that bound: every weight element is read once and used
+// for all B rows; the (B, d) hidden state is tiny, so each block
+// recomputes the norm into shared memory instead of writing a normalised
+// copy to device memory and reading it back.
+//   tied (V, d), bf16 (the main path: OLMo-1B, Mamba2-1.3B): a persistent
+//   grid of one block per SM, each owning a contiguous share of the
+//   vocab rows.  One producer warp keeps a ring of up to 16 shared-memory
+//   stages (8 rows x up to 2048 columns) full with cp.async.bulk copies
+//   completed on mbarriers; four consumer warps normalise x while the
+//   first stages fly, then multiply each stage with the batch on the
+//   tensor cores (mma.sync m16n8k16 from shared memory, fp32
+//   accumulation) and release it.  Measured before this design: register
+//   loads of 64 bytes a row stream W at ~70 % of the bytes rate, bulk
+//   copies at ~90 %.
 //   tied (V, d), fp32: a warp per vocab row, lanes along d;
 //   untied (d, V): threads along V in 16-byte column chunks, the d axis
 //   split over the block and summed through shuffles and shared memory.
-// wgmma and TMA are later work.
+// Earlier designs of the tied bf16 path, at OLMo-1B's shape on an H100
+// SXM (700 W): 393 blocks, each normalising x first, then each warp
+// streaming 16 rows 64 bytes at a time into mma.sync, 0.0895 ms; the
+// same with FMAs on the CUDA cores, 0.183 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -166,63 +173,246 @@ __global__ void __launch_bounds__(THREADS) emit_tied_kernel(
 // D (16 x 8, fp32) += A (16 x 16, bf16, rows) * B (16 x 8, bf16, columns).
 __device__ __forceinline__ void mma_bf16_16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
                                                uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-constexpr int MMA_ROWS = 16;  // vocab rows per warp (the mma's M)
-constexpr int MMA_B = 8;      // batch rows per mma (its N)
-constexpr int XN_PAD = 32;    // bf16 elements of padding per xn row: no bank conflicts
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Tied head in bf16 on the tensor cores: W is (V, d), d % 32 == 0.  grid:
-// ceil(V / (NWARPS * MMA_ROWS)).  Lane (g = lane / 4, t = lane % 4) of a
-// warp feeds the mma rows g and g + 8 (vocab rows row0 + g, row0 + g + 8)
-// and column g (batch row b0 + g).  The d axis is walked in chunks of 32:
-// lane t reads 16 contiguous bytes, columns [c + 8t, c + 8t + 8), of both
-// W rows and of the xn row, and feeds the first half to one mma and the
-// second half to the next.  The mma's k slots (2t, 2t+1, 2t+8, 2t+9) thus
-// hold other columns of d than their index says, but the same ones in A
-// and in B, so every product W[v, k] * xn[b, k] is summed exactly once.
-__global__ void __launch_bounds__(THREADS) emit_tied_mma_kernel(
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// One row of d bf16 values in shared memory, normalised in place by the
+// calling warp (the function of normalize_rows): lane reads 8 values
+// at a time, d % 8 == 0.
+__device__ void normalize_row_smem(__nv_bfloat16* row, const float* scale, int d,
+                                   int norm, float eps) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f, ss = 0.f;
+  for (int i = lane * 8; i < d; i += 256) {
+    float v[8];
+    Vec<__nv_bfloat16>::load(row + i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s += v[e];
+      ss += v[e] * v[e];
+    }
+  }
+  float mu = 0.f, r;
+  if (norm == 0) {
+    r = rsqrtf(warp_sum(ss) / d + eps);
+  } else {
+    mu = warp_sum(s) / d;
+    float sq = 0.f;
+    for (int i = lane * 8; i < d; i += 256) {
+      float v[8];
+      Vec<__nv_bfloat16>::load(row + i, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sq += (v[e] - mu) * (v[e] - mu);
+    }
+    r = rsqrtf(warp_sum(sq) / d + eps);
+  }
+  for (int i = lane * 8; i < d; i += 256) {
+    float v[8];
+    Vec<__nv_bfloat16>::load(row + i, v);
+    uint4 o;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float a = norm == 0 ? v[2 * e] * r * scale[i + 2 * e] : (v[2 * e] - mu) * r;
+      float b = norm == 0 ? v[2 * e + 1] * r * scale[i + 2 * e + 1] : (v[2 * e + 1] - mu) * r;
+      h[e] = __floats2bfloat162_rn(a, b);
+    }
+    *reinterpret_cast<uint4*>(row + i) = o;
+  }
+}
+
+constexpr int TMA_ROWS = 8;         // vocab rows a stage: the mma's N
+constexpr int TMA_CONS = 4;         // consumer warps; warp TMA_CONS is the producer
+constexpr int TMA_THREADS = (TMA_CONS + 1) * 32;
+constexpr int TMA_MAX_STAGES = 16;
+constexpr int TMA_MAX_MT = 4;       // batch tiles of 16 rows: B <= 64
+constexpr int TMA_PAD = 32;         // bf16 elements of padding a shared row: no bank conflicts
+constexpr int TMA_BAR_BYTES = 512;  // the ring's and x's barriers, ahead of the stages
+
+// Tied head in bf16 on the tensor cores, fed by bulk copies: W is (V, d),
+// V % 8 == 0, d % 32 == 0, B <= 64.  grid: one block per SM; block k
+// owns the k-th contiguous share of the V / 8 groups of 8 vocab rows.
+// Warp TMA_CONS keeps a ring of `stages` shared-memory stages full, one
+// stage = 8 vocab rows x kc columns of d (8 cp.async.bulk row copies
+// completed on the stage's `full` mbarrier).  Every consumer warp takes
+// every stage, in order, a quarter of its columns each, and releases it
+// on its `empty` mbarrier (4 arrivals); after a group's last stage the
+// four partial sums meet in shared memory.  (A warp owning whole groups
+// alone could wait on a slot's next phase before another warp's earlier
+// phase of it had completed, and a phase-parity wait cannot tell the two
+// apart.)  The consumers normalise x into shared memory while the first
+// stages are in flight (x's rows arrive by bulk copy ahead of them: the
+// consumers walking x in device memory themselves kept the ring waiting
+// on their loads' latency).  Per stage the
+// product is mma.sync m16n8k16 with the batch as M (16-row tiles, rows
+// past B zero) and the stage's 8 rows as N.  The d axis is walked in
+// chunks of 32: lane (g = lane / 4, t = lane % 4) reads 16 contiguous
+// bytes, columns [c + 8t, c + 8t + 8), of W row g and of xn rows g and
+// g + 8, and feeds the first half to one mma and the second half to the
+// other.  The mma's k slots then hold other columns of d than their
+// index says, but the same ones in A and in B, so every product
+// W[v, k] * xn[b, k] is summed exactly once.
+template <int MT>  // batch tiles of 16 rows
+__global__ void __launch_bounds__(TMA_THREADS, 1) emit_tied_tma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ scale, float* __restrict__ out, int B, int d, int V, int norm,
-    float eps) {
-  const int bpad = (B + MMA_B - 1) / MMA_B * MMA_B, ld = d + XN_PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xn_s = reinterpret_cast<__nv_bfloat16*>(smem);  // (bpad, ld), rows >= B zero
-  normalize_rows<__nv_bfloat16>(x, scale, xn_s, B, d, ld, norm, eps);
-  for (int i = threadIdx.x; i < (bpad - B) * ld; i += THREADS)
-    xn_s[(size_t)B * ld + i] = __float2bfloat16(0.f);
+    float eps, int kc, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + TMA_MAX_STAGES;
+  uint64_t* x_bar = empty + TMA_MAX_STAGES;
+  const int ldk = kc + TMA_PAD, ldx = d + TMA_PAD;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + TMA_BAR_BYTES);
+  __nv_bfloat16* xn = ring + (size_t)stages * TMA_ROWS * ldk;  // (B, ldx)
+  float* scale_s = reinterpret_cast<float*>(xn + (size_t)B * ldx);  // (d,), rmsnorm only
+  float* red = scale_s + (norm == 0 ? d : 0);  // (2, TMA_CONS, MT, 32 lanes, 4) partial sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(full + s)));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(empty + s)),
+                   "n"(TMA_CONS));
+    }
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(x_bar)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = (blockIdx.x * NWARPS + warp) * MMA_ROWS;
-  if (row0 >= V) return;  // no barrier follows
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;
-  // rows past V read row V-1 and are not written
-  const __nv_bfloat16* w_lo = w + (size_t)min(r_lo, V - 1) * d + 8 * t;
-  const __nv_bfloat16* w_hi = w + (size_t)min(r_hi, V - 1) * d + 8 * t;
-  for (int b0 = 0; b0 < B; b0 += MMA_B) {
-    const __nv_bfloat16* xb = xn_s + (size_t)(b0 + g) * ld + 8 * t;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int k = 0; k < d; k += 32) {
-      const uint4 a_lo = *reinterpret_cast<const uint4*>(w_lo + k);
-      const uint4 a_hi = *reinterpret_cast<const uint4*>(w_hi + k);
-      const uint4 bx = *reinterpret_cast<const uint4*>(xb + k);
-      mma_bf16_16816(c, a_lo.x, a_hi.x, a_lo.y, a_hi.y, bx.x, bx.y);
-      mma_bf16_16816(c, a_lo.z, a_hi.z, a_lo.w, a_hi.w, bx.z, bx.w);
+  const int groups = V / TMA_ROWS, nk = (d + kc - 1) / kc;
+  const int g0 = (int)((long long)groups * blockIdx.x / gridDim.x);
+  const int g1 = (int)((long long)groups * (blockIdx.x + 1) / gridDim.x);
+  if (warp == TMA_CONS) {  // producer: x's rows first, then the ring
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_u32(x_bar)), "r"(B * d * 2 + (norm == 0 ? d * 4 : 0)) : "memory");
+    __syncwarp();
+    if (norm == 0 && lane == 31)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_u32(scale_s)), "l"(scale), "r"(d * 4), "r"(smem_u32(x_bar)) : "memory");
+    for (int b = lane; b < B; b += 32)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_u32(xn + (size_t)b * ldx)), "l"(x + (size_t)b * d), "r"(d * 2),
+             "r"(smem_u32(x_bar))
+          : "memory");
+    const int total = (g1 - g0) * nk;
+    for (int s = 0; s < total; ++s) {
+      const int slot = s % stages;
+      if (s >= stages) mbar_wait(empty + slot, ((s / stages) - 1) & 1);
+      const int row = (g0 + s / nk) * TMA_ROWS, k0 = (s % nk) * kc, cols = min(kc, d - k0);
+      if (lane == 0)
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(smem_u32(full + slot)), "r"(TMA_ROWS * cols * 2) : "memory");
+      __syncwarp();
+      if (lane < TMA_ROWS)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\n"
+            :: "r"(smem_u32(ring + ((size_t)slot * TMA_ROWS + lane) * ldk)),
+               "l"(w + (size_t)(row + lane) * d + k0), "r"(cols * 2), "r"(smem_u32(full + slot))
+            : "memory");
     }
-    // c[0], c[1]: vocab row r_lo, batch rows b0 + 2t, b0 + 2t + 1; c[2], c[3]: row r_hi
+    return;
+  }
+
+  // x (and the rmsnorm scale) arrive by bulk copy ahead of the ring; each
+  // warp normalises its rows in place
+  mbar_wait(x_bar, 0);
+  for (int b = warp; b < B; b += TMA_CONS)
+    normalize_row_smem(xn + (size_t)b * ldx, scale_s, d, norm, eps);
+  asm volatile("bar.sync 1, %0;\n" :: "n"(TMA_CONS * 32) : "memory");  // consumers only
+
+  const int g = lane >> 2, t = lane & 3;
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  for (int grp = 0; grp < g1 - g0; ++grp) {
+    float acc[4][MT][4] = {};  // four chains: the chunks of a step
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = grp * nk + kb, slot = s % stages, k0 = kb * kc, cols = min(kc, d - k0);
+      mbar_wait(full + slot, (s / stages) & 1);
+      const __nv_bfloat16* ws = ring + ((size_t)slot * TMA_ROWS + g) * ldk + 8 * t;
+      const __nv_bfloat16* xs = xn + k0 + 8 * t;
+      // this warp's 32-column chunks of the stage: warp, warp + 4, ...;
+      // a step loads four chunks, then multiplies them
+      for (int k = 32 * warp; k < cols; k += 4 * 32 * TMA_CONS) {
+        uint4 wv[4], xa[4][MT], xb[4][MT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = i < 2 ? r_lo : r_hi, b = b0 + 2 * t + (i & 1);
-      if (v < V && b < B)
-        out[(size_t)b * V + v] = __bfloat162float(__float2bfloat16(c[i]));
+        for (int u = 0; u < 4; ++u) {
+          const int kk = k + 32 * TMA_CONS * u;
+          const bool in = kk < cols;
+          wv[u] = in ? *reinterpret_cast<const uint4*>(ws + kk) : z;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int lo = mt * 16 + g, hi = lo + 8;
+            xa[u][mt] = in && lo < B ? *reinterpret_cast<const uint4*>(xs + (size_t)lo * ldx + kk) : z;
+            xb[u][mt] = in && hi < B ? *reinterpret_cast<const uint4*>(xs + (size_t)hi * ldx + kk) : z;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16_16816(acc[u][mt], xa[u][mt].x, xb[u][mt].x, xa[u][mt].y, xb[u][mt].y,
+                           wv[u].x, wv[u].y);
+            mma_bf16_16816(acc[u][mt], xa[u][mt].z, xb[u][mt].z, xa[u][mt].w, xb[u][mt].w,
+                           wv[u].z, wv[u].w);
+          }
+      }
+      __syncwarp();
+      if (lane == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(empty + slot))
+                     : "memory");
+    }
+    // the warps' partial sums through shared memory (two buffers, by the
+    // group's parity: one barrier a group), summed by warp grp % 4
+    float* part = red + (size_t)(grp & 1) * TMA_CONS * MT * 128;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float4 p4;
+      p4.x = (acc[0][mt][0] + acc[1][mt][0]) + (acc[2][mt][0] + acc[3][mt][0]);
+      p4.y = (acc[0][mt][1] + acc[1][mt][1]) + (acc[2][mt][1] + acc[3][mt][1]);
+      p4.z = (acc[0][mt][2] + acc[1][mt][2]) + (acc[2][mt][2] + acc[3][mt][2]);
+      p4.w = (acc[0][mt][3] + acc[1][mt][3]) + (acc[2][mt][3] + acc[3][mt][3]);
+      reinterpret_cast<float4*>(part)[(warp * MT + mt) * 32 + lane] = p4;
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(TMA_CONS * 32) : "memory");
+    if (warp != grp % TMA_CONS) continue;
+    // c[0], c[1]: batch row mt * 16 + g, vocab rows v, v + 1; c[2], c[3]: batch row + 8
+    const int v = (g0 + grp) * TMA_ROWS + 2 * t;
+    for (int mt = 0; mt < MT; ++mt) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int wi = 0; wi < TMA_CONS; ++wi) {
+        const float4 q = reinterpret_cast<const float4*>(part)[(wi * MT + mt) * 32 + lane];
+        sum.x += q.x; sum.y += q.y; sum.z += q.z; sum.w += q.w;
+      }
+      const float c[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = mt * 16 + g + 8 * h;
+        if (b < B) {
+          float2 o;
+          o.x = __bfloat162float(__float2bfloat16(c[2 * h]));
+          o.y = __bfloat162float(__float2bfloat16(c[2 * h + 1]));
+          *reinterpret_cast<float2*>(out + (size_t)b * V + v) = o;
+        }
+      }
     }
   }
 }
@@ -306,16 +496,41 @@ cudaError_t launch(int norm, int tied, const void* x, const void* w, const void*
   const size_t xn_bytes = (size_t)B * d * sizeof(T);
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (tied && d % 32 == 0) {
-      const int bpad = (B + MMA_B - 1) / MMA_B * MMA_B;
-      const size_t smem = (size_t)bpad * (d + XN_PAD) * sizeof(T);
-      err = cudaFuncSetAttribute(emit_tied_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+    if (tied && d % 32 == 0 && B <= 16 * TMA_MAX_MT) {
+      // the widest stage (kc columns: d, or a power of two from 2048 down to
+      // 32 below it) that leaves room for two; whole rows when they fit
+      // (on an H100, stages of 1024 columns measured ~2 % slower at d = 2048)
+      // the normalised x, the rmsnorm scale in fp32, the partial sums
+      const size_t xn_smem = (size_t)B * (d + TMA_PAD) * sizeof(T) + (norm == 0 ? d * 4 : 0) +
+                             2 * TMA_CONS * ((B + 15) / 16) * 128 * sizeof(float);
+      const size_t limit = 227 * 1024;
+      int kc = 0, stages = 0;
+      for (int cap = 2048; cap >= 32; cap /= 2) {
+        kc = std::min(cap, d);
+        const size_t stage = (size_t)TMA_ROWS * (kc + TMA_PAD) * sizeof(T);
+        if (xn_smem + TMA_BAR_BYTES + 2 * stage <= limit) {
+          stages = (int)std::min<size_t>(TMA_MAX_STAGES, (limit - xn_smem - TMA_BAR_BYTES) / stage);
+          break;
+        }
+      }
+      if (stages < 2) return cudaErrorInvalidValue;
+      const size_t smem =
+          TMA_BAR_BYTES + (size_t)stages * TMA_ROWS * (kc + TMA_PAD) * sizeof(T) + xn_smem;
+      auto kernel = B <= 16 ? emit_tied_tma_kernel<1> : B <= 32 ? emit_tied_tma_kernel<2>
+                  : B <= 48 ? emit_tied_tma_kernel<3> : emit_tied_tma_kernel<4>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
-      const int rows = NWARPS * MMA_ROWS;
-      emit_tied_mma_kernel<<<(V + rows - 1) / rows, THREADS, smem, stream>>>(
+      static int sms = 0;
+      if (sms == 0) {
+        int dev = 0;
+        err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+          err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return err;
+      }
+      kernel<<<min(sms, V / TMA_ROWS), TMA_THREADS, smem, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(scale),
-          static_cast<float*>(out), B, d, V, norm, eps);
+          static_cast<float*>(out), B, d, V, norm, eps, kc, stages);
       return cudaGetLastError();
     }
   }

@@ -60,9 +60,10 @@ def emit_norm_logits(
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    # the normalised x, its rows padded to a multiple of 8 and by 32
-    # elements each, beside at most 20 KB of the kernels' own
-    if -(-b // 8) * 8 * (d + 32) * x.element_size() + 20 * 1024 > SMEM_LIMIT:
+    # the normalised x, its rows padded by 32 elements each, and the fp32
+    # rmsnorm scale, beside 20 KB of the kernels' own (at least two stages
+    # of the tied bf16 ring)
+    if b * (d + 32) * x.element_size() + 4 * d + 20 * 1024 > SMEM_LIMIT:
         raise ValueError(f"B={b}, d={d}: the normalised x does not fit the kernel's shared memory")
     out = torch.empty((b, v), dtype=torch.float32, device=x.device)
     fn = K.kernel_function("emit_norm_logits", "emit_norm_logits", _ARGTYPES)

@@ -21,8 +21,8 @@ from repro_torch import kernels as K
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-MAX_CHUNK = 256  # rows of a chunk the kernel's in-block scan covers (THREADS)
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+MAX_CHUNK = 256  # rows of a chunk the kernel's in-block scan covers (2 a thread)
 
 
 def _check(x, dt, b, c, a, d_skip):
@@ -76,12 +76,11 @@ def ssd_intra_chunk(
     y = torch.empty_like(x)
     state = torch.empty((bc, h, n, p), dtype=torch.float32, device=x.device)
     cum = torch.empty((bc, h, q), dtype=torch.float32, device=x.device)
-    cb = torch.empty((bc, g, q, q), dtype=torch.float32, device=x.device)  # C.B^T, per group
     fn = K.kernel_function("ssd", "ssd_intra_chunk", _ARGTYPES)
     code = fn(
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), cum.data_ptr(),
-        cb.data_ptr(), bc, h, g, q, p, n, torch.cuda.current_stream(x.device).cuda_stream,
+        bc, h, g, q, p, n, torch.cuda.current_stream(x.device).cuda_stream,
     )
     K.check_launch("ssd", code)
     K.LAUNCHES["ssd"] += 1

@@ -118,10 +118,30 @@ def test_wrappers_raise_rather_than_fall_back():
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm_nonparam"])
 @pytest.mark.parametrize("tied", [False, True])
-@pytest.mark.parametrize("b", [1, 11])
-def test_emit_matches_plain(dtype, norm, tied, b):
+@pytest.mark.parametrize("b", [1, 8, 11, 16])
+@pytest.mark.parametrize("v", [64, 1000, 50280, 50288, 50304])
+@pytest.mark.parametrize("d", [256, 2080])
+def test_emit_matches_plain(dtype, norm, tied, b, v, d):
+    """V 64: fewer groups of 8 vocab rows than the tied bf16 kernel has
+    blocks; 1000, 50280 and 50288: shares of the vocab that differ by a
+    group between blocks; 50304 and 50280: the two served widths.  d 2080:
+    a row group takes two stages, the second of 32 of d's columns."""
+    _check_emit(dtype, norm, tied, b, v, d)
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm_nonparam"])
+@pytest.mark.parametrize("v", [64, 50280, 50304])
+@pytest.mark.parametrize("b,d", [(17, 256), (33, 256), (48, 256), (64, 256),
+                                 (17, 2048), (33, 2048), (48, 2048)])
+def test_emit_batch_tiles_match_plain(norm, v, b, d):
+    """The tied bf16 kernel past 16 batch rows: two to four 16-row batch
+    tiles, the last one partial except at 64.  At d 2048, 33 and 48 rows
+    leave room only for stages narrower than a row."""
+    _check_emit(torch.bfloat16, norm, True, b, v, d)
+
+
+def _check_emit(dtype, norm, tied, b, v, d):
     gen = _gen(3)
-    d, v = 256, 1000
     x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
     w = (torch.randn((v, d) if tied else (d, v), generator=gen, device="cuda") * d**-0.5).to(dtype)
     scale = torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1.0
@@ -275,6 +295,12 @@ def _ssd_args(gen, bc, h, q, p, g, n, dtype):
     (1, 8, 100, 32, 4, 48),    # G = 4, N not a multiple of the 16-deep step
     (2, 4, 1, 80, 2, 40),      # one row; P over two column tiles
     (1, 2, 130, 130, 1, 200),  # every edge ragged
+    (1, 8, 1, 64, 1, 128),     # Q = 1, 16, 64, 65, 255: one row; one k step; one tile;
+    (1, 8, 16, 64, 1, 128),    #   a second tile of one row; every tile, the last ragged
+    (1, 8, 64, 64, 1, 128),
+    (1, 8, 65, 64, 1, 128),
+    (1, 8, 255, 64, 1, 128),
+    (2, 8, 256, 64, 2, 64),    # G = 2, N = 64
 ], ids=str)
 def test_ssd_intra_chunk_matches_plain(dtype, bc, h, q, p, g, n):
     args = _ssd_args(_gen(6), bc, h, q, p, g, n, dtype)
