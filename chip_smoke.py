@@ -160,10 +160,12 @@ def run_decode_attention(gen, results):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.ops import fused_decode_attention
+    from repro_torch import kernels as K
+    from repro_torch.kernels.decode_attention.ops import decode_split, fused_decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     b, s, dh, copies = 8, 1024, 128, 4
+    sms = K.sm_count(torch.device("cuda"))
     pos = [0, s - 1, 517, 128, 64, 900, 1000, 3]
     main = None
     for label, h, kv in (("olmo-1b", 16, 16), ("qwen3-32b GQA", 64, 8)):
@@ -199,11 +201,13 @@ def run_decode_attention(gen, results):
             rows = n.clamp(max=s).sum().item()
             nbytes = args[0].element_size() * (2 * b * h * dh + 2 * kv * dh * rows) + 8 * b
             bms, by = bound_ms(nbytes, 4 * h * dh * rows, dtype)
+            split_rows, splits = decode_split(b, kv, s, sms)
             print(f"decode_attention {label} B={b} S={s} H={h} KV={kv} dh={dh} {dtype} "
                   f"(valid rows {rows}): max_abs_err={err.max().item():.3e} "
                   f"max_rel_err={rel:.3e} tol={tol:g} {'ok' if ok else 'FAILED'}; device "
                   f"kernel {ms:.4f} ms (eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+                  f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; bound/kernel "
+                  f"{bms / ms:.3f}); {splits} splits of {split_rows} rows", flush=True)
             if not ok:
                 fail(f"decode_attention {label} {dtype} disagrees with its plain version")
             if main is None:
@@ -313,7 +317,8 @@ def run_flash(gen, results):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_split, key_span
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -367,12 +372,18 @@ def run_flash(gen, results):
         lib_ms = device_ms(library)
         nbytes, ops = flash_work(b, sq, sk, h, kv, dh, causal, q_offset, per_row, elem)
         bms, by = bound_ms(nbytes, ops, dtype)
+        span = key_span(sq, sk, causal=causal, q_offset=q_offset,
+                        kv_len=None if isinstance(kv_len, list) else kv_len)
+        block_rows, split_keys, splits = (
+            flash_split(b, h, sq, span, K.sm_count(torch.device("cuda"))) if dtype == bf16
+            else (64, sk, 1))
         print(f"flash_attention {label} B={b} Sq={sq} cache={sk} H={h} KV={kv} dh={dh} {dtype} "
               f"causal={causal} q_offset={q_offset} kv_len={kv_len}: "
               f"max_abs_err={err.max().item():.3e} tol={tol:g} {'ok' if ok else 'FAILED'}; "
               f"device kernel {ms:.4f} ms (eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e9:.3f} GFLOP)", flush=True)
+              f"{ops / 1e9:.3f} GFLOP; bound/kernel {bms / ms:.3f}); {block_rows}-row blocks, "
+              f"{splits} splits of {split_keys} keys", flush=True)
         if not ok:
             fail(f"flash_attention {label} {dtype} q_offset={q_offset} disagrees with its "
                  f"plain version")

@@ -148,11 +148,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to; the name hashes the source and
-    the flags, so an edited source never loads a stale library."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to; the name hashes the source, the
+    shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+    header never loads a stale library."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -198,6 +199,30 @@ def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _FUNCS[key] = fn
     return _FUNCS[key]
+
+
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def merge_tickets(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int32 merge tickets on ``device``, zeroed once.
+
+    The attention kernels that split a row over blocks count finished
+    splits here with atomics; the split that merges resets its ticket, so
+    every launch leaves the buffer zeroed (a CUDA-graph replay finds it
+    so).  Launches on one stream run in order and share the buffer; two
+    launches running at once on two streams would collide in it (nothing
+    in the port does that)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, which the split-choosing functions fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_launch(name: str, code: int) -> None:

@@ -4,6 +4,13 @@ Model code hands the decode query as ``(B, 1, H, dh)`` and per-sequence
 ``kv_len`` as ``(B,)`` or ``(B, 1)``; the kernel takes flat per-row
 operands.  A CPU tensor runs the plain version (``ref.py``); a CUDA
 tensor launches the kernel on the current stream or raises.
+
+The kernel splits each row's S axis over blocks (:func:`decode_split`
+picks the split) and merges the splits in the same launch: the last
+split of a (row, KV head) to finish takes an atomic ticket and merges.
+The tickets are ``kernels.merge_tickets``: one zeroed int32 buffer per
+device that every launch leaves zeroed; two calls running at once on two
+streams would share it (nothing in the port does that).
 """
 from __future__ import annotations
 
@@ -16,11 +23,33 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p,
+                                              ctypes.c_longlong] + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p]
 )
 MAX_GROUP = 16  # query heads per KV head the kernel holds (MAX_G)
-TILE = 64  # cache rows per block of the kernel (TILE); sizes the partials
+TILE = 64  # cache rows a stage of the kernel's ring (TILE): splits are multiples of it
+WAVES = 4  # blocks an SM the split aims at when every row is full
+
+
+def decode_split(b: int, kv: int, s: int, sms: int) -> tuple[int, int]:
+    """``(rows a split, splits)`` of the S axis for ``b * kv`` (row, KV
+    head) pairs on ``sms`` SMs: enough splits that the grid of ``splits *
+    b * kv`` blocks reaches ``WAVES`` blocks an SM where S allows it, each
+    split a whole number of ``TILE``-row tiles, every split holding at
+    least one row of S.  (On an H100, 2 to 4 blocks an SM measured the
+    same at OLMo-1B's step; 8 and 16, with their extra blocks and merges,
+    slower.)"""
+    tiles = -(-s // TILE)
+    want = max(1, min(tiles, -(-WAVES * sms // (b * kv))))
+    per = -(-tiles // want)  # tiles a split
+    return per * TILE, -(-tiles // per)
+
+
+def partial_floats(b: int, h: int, dh: int, splits: int) -> int:
+    """fp32 scratch of the splits' partials: (m, l) and an unnormalised
+    output row per (row, query head, split); none for one split."""
+    return b * h * splits * (dh + 2) if splits > 1 else 0
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, pos, kv_len):
@@ -84,13 +113,16 @@ def fused_decode_attention(
     kv_len = kv_len.reshape(b)
     _check(q, k_new, v_new, k_cache, v_cache, pos, kv_len)
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
-    # per (row, head, 64-row tile): softmax max and sum, unnormalised P.V
-    scratch = torch.empty(b * h * -(-s // TILE) * (dh + 2), dtype=torch.float32, device=q.device)
+    rows, splits = decode_split(b, kv, s, K.sm_count(q.device))
+    scratch = torch.empty(max(partial_floats(b, h, dh, splits), 1), dtype=torch.float32,
+                          device=q.device)
+    tickets = K.merge_tickets(q.device, b * kv)
     fn = K.kernel_function("decode_attention", "decode_attention", _ARGTYPES)
     code = fn(
         _DTYPES[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), scratch.numel(), b, s, h, kv, dh,
+        out.data_ptr(), scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
+        tickets.numel(), b, s, h, kv, dh, rows,
         float(softmax_scale or dh**-0.5), torch.cuda.current_stream(q.device).cuda_stream,
     )
     K.check_launch("decode_attention", code)

@@ -7,6 +7,12 @@ Both launch the same kernel (it reads either layout through strides).
 ``kv_len`` is ``None``, an int, or a ``(B,)`` / ``(B, 1)`` int32 tensor;
 ``q_offset`` an int.  A CPU tensor runs the plain version (``ref.py``);
 a CUDA tensor launches the kernel on the current stream or raises.
+
+In bf16 the kernel splits the keys a query tile can see over blocks
+where the query tiles alone leave SMs idle (:func:`flash_split`), and
+the last split of a tile to finish merges the splits in the same launch
+through ``kernels.merge_tickets`` (one buffer per device: two calls
+running at once on two streams would share it).
 """
 from __future__ import annotations
 
@@ -19,10 +25,50 @@ from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attenti
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+TILE = 64  # key rows of a stage (BK); query rows of a consumer warpgroup (BQ)
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                            ctypes.c_longlong, ctypes.c_void_p]
 )
+
+
+def key_span(sq: int, sk: int, *, causal: bool, q_offset: int, kv_len) -> int:
+    """Keys some query can see, from what the host knows: the causal bound
+    of the last query row, and ``kv_len`` when it is one count."""
+    span = min(max(q_offset + sq, 0), sk) if causal else sk
+    if kv_len is not None and not isinstance(kv_len, torch.Tensor):
+        span = min(span, max(min(int(kv_len), sk), 0))
+    return span
+
+
+def flash_split(b: int, h: int, sq: int, span: int, sms: int) -> tuple[int, int, int]:
+    """``(query rows a block, keys a split, splits)`` of the bf16 kernel
+    (one block an SM) for ``b * h`` heads of ``sq`` queries that see at
+    most ``span`` keys, on ``sms`` SMs.
+
+    Where 128-row query tiles alone reach the SM count (``forward`` over a
+    long prompt), a block holds 128 rows in two consumer warpgroups that
+    share each K/V tile, and the keys are not split.  Otherwise a block
+    holds 64 rows, and the keys are split into as many ranges of whole
+    64-key tiles as keep the grid within the SM count: every split past
+    the first adds a partial to merge, and a merge reads each partial
+    once.  Every split holds at least one key of the span."""
+    tiles = max(1, -(-span // TILE))
+    if b * h * -(-sq // (2 * TILE)) >= sms:
+        return 2 * TILE, tiles * TILE, 1
+    blocks = max(1, b * h * -(-sq // TILE))
+    want = max(1, min(tiles, sms // blocks))
+    per = -(-tiles // want)  # key tiles a split
+    return TILE, per * TILE, -(-tiles // per)
+
+
+def partial_floats(b: int, h: int, sq: int, dh: int, splits: int, rows: int) -> int:
+    """fp32 scratch of the splits' partials: (m, l) and an unnormalised
+    output per query row (of whole ``rows``-row blocks), head and split;
+    none for one split."""
+    return b * h * -(-sq // rows) * splits * rows * (dh + 2) if splits > 1 else 0
 
 
 def _launch(q, k, v, *, heads_first, causal, q_offset, kv_len, softmax_scale):
@@ -74,12 +120,22 @@ def _launch(q, k, v, *, heads_first, causal, q_offset, kv_len, softmax_scale):
         q_str, k_str = (qs[0], qs[2], qs[1]), (ks[0], ks[2], ks[1])
     else:
         q_str, k_str = (qs[0], qs[1], qs[2]), (ks[0], ks[1], ks[2])
+    if q.dtype == torch.bfloat16:  # fp32 runs one block per query tile and head
+        span = key_span(sq, sk, causal=causal, q_offset=q_offset, kv_len=kv_len)
+        rows, keys, splits = flash_split(b, h, sq, span, K.sm_count(q.device))
+    else:
+        rows, keys, splits = TILE, TILE * max(1, -(-sk // TILE)), 1
+    scratch = torch.empty(max(partial_floats(b, h, sq, dh, splits, rows), 1),
+                          dtype=torch.float32, device=q.device)
+    tickets = K.merge_tickets(q.device, b * h * -(-sq // rows))
     fn = K.kernel_function("flash_attention", "flash_attention", _ARGTYPES)
     code = fn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lens is None else lens.data_ptr(), len_scalar, b, sq, sk, h, kv, dh,
         *q_str, *k_str, int(bool(causal)), q_offset,
         float(softmax_scale if softmax_scale is not None else dh**-0.5),
+        rows, keys, splits, scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
+        tickets.numel(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     K.check_launch("flash_attention", code)

@@ -115,6 +115,62 @@ def test_wrappers_raise_rather_than_fall_back():
                           "ssd": 0, "rmsnorm": 0}
 
 
+def _split_positions(b, s, rows):
+    """Write positions at tile and split edges (rows = the split's rows),
+    one per batch row, cycling."""
+    edges = [0, 63, 64, rows - 1, rows, rows + 1, 2 * rows - 1, s - 1, s // 2, 127, 128, 1]
+    return [min(edges[i % len(edges)], s - 1) for i in range(b)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("g,kv", [(1, 4), (6, 2), (8, 2), (16, 2)], ids=str)
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("s", [1000, 1024])
+def test_decode_attention_splits_match_plain(dtype, dh, g, kv, b, s):
+    """The split grid at every served width: positions at tile and split
+    edges; row 0 is an admission (pos 0) over a poisoned cache (NaN in K
+    and 1e4 in V past kv_len: masked, never multiplied in)."""
+    from repro_torch.kernels.decode_attention.ops import decode_split
+
+    h = g * kv
+    rows, splits = decode_split(b, kv, s, torch.cuda.get_device_properties(0).multi_processor_count)
+    args, pos, kv_len = _decode_args(_gen(10), b, s, h, kv, dh, dtype, _split_positions(b, s, rows))
+    args[3][0, 1:] = float("nan")
+    args[4][0, 1:] = 1e4
+    got = fused_decode_attention(*args, pos=pos, kv_len=kv_len)
+    want = decode_attention_ref(*args, pos=pos, kv_len=kv_len)
+    assert torch.isfinite(got.float()).all()
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert K.LAUNCHES["decode_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_attention_twice_and_in_a_graph(dtype):
+    """The merge tickets are back at 0 after every launch: two calls in a
+    row, then one capture replayed twice on new inputs, all match."""
+    b, s, h, kv, dh = 8, 1024, 16, 16, 128
+    pos = [1023, 517, 128, 64, 900, 1000, 3, 0]
+    cases = [_decode_args(_gen(11 + i), b, s, h, kv, dh, dtype, pos) for i in range(3)]
+    tol = DECODE_TOL[dtype]
+    for args, pos, kv_len in cases[:2]:
+        got = fused_decode_attention(*args, pos=pos, kv_len=kv_len)
+        want = decode_attention_ref(*args, pos=pos, kv_len=kv_len)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    static = [t.clone() for t in cases[0][0]], cases[0][1].clone(), cases[0][2].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_decode_attention(*static[0], pos=static[1], kv_len=static[2])
+    for args, pos, kv_len in cases[1:]:
+        for dst, src in zip(static[0] + [static[1], static[2]], list(args) + [pos, kv_len]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = decode_attention_ref(*args, pos=pos, kv_len=kv_len)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm_nonparam"])
 @pytest.mark.parametrize("tied", [False, True])
@@ -221,6 +277,55 @@ def test_flash_attention_matches_plain(dtype, h, kv, dh, q_offset, kv_len, causa
     assert K.LAUNCHES["attention"] == 1
     if kv_len == "ragged":
         assert torch.all(got[1] == 0)  # no valid key: 0, the NaN scrub
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq", [1, 70, 128, 2048])
+@pytest.mark.parametrize("h,kv", [(16, 16), (16, 2)], ids=str)
+@pytest.mark.parametrize("q_offset,kv_len", [
+    (500, None),                   # the causal bound inside a split
+    (512, [640, 0, 100, 1024]),    # a row with no key; rows whose later splits are empty
+    (0, 1024),
+], ids=str)
+def test_flash_attention_splits_match_plain(dtype, sq, h, kv, q_offset, kv_len):
+    """Sk = 1024 split over blocks (a 128-row chunk gives several splits),
+    causal; GQA with g = 8."""
+    b, sk, dh = (4 if isinstance(kv_len, list) else 1), 1024, 128
+    if sq == 2048:
+        sk, q_offset = 2048, 0
+    q, k, v = _flash_args(_gen(12), b, sq, sk, h, kv, dh, dtype)
+    lens = (torch.tensor(kv_len, dtype=torch.int32, device="cuda") if isinstance(kv_len, list)
+            else kv_len)
+    kw = dict(causal=True, q_offset=q_offset, kv_len=lens)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+    if isinstance(kv_len, list):
+        assert torch.all(got[1] == 0)  # no valid key: 0
+    assert K.LAUNCHES["attention"] == 1
+
+
+def test_flash_attention_twice_and_in_a_graph():
+    """The merge tickets are back at 0 after every launch (bf16 splits)."""
+    b, sq, sk, h, kv, dh = 1, 128, 1024, 16, 16, 128
+    kw = dict(causal=True, q_offset=512, kv_len=640)
+    cases = [_flash_args(_gen(13 + i), b, sq, sk, h, kv, dh, torch.bfloat16) for i in range(3)]
+    tol = FLASH_TOL[torch.bfloat16]
+    for q, k, v in cases[:2]:
+        torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
+                                   flash_attention_ref(q, k, v, **kw).float(), atol=tol, rtol=tol)
+    static = [t.clone() for t in cases[0]]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(*static, **kw)
+    for case in cases[1:]:
+        for dst, src in zip(static, case):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), flash_attention_ref(*case, **kw).float(),
+                                   atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
