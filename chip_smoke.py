@@ -24,7 +24,8 @@
    after OLMo's weights are freed: the same 12 requests through
    ``Engine`` with 256-token prefill chunks; the counters show every
    prefill call through the SSD kernel once per layer, every prefill
-   call and decode step through the RMSNorm kernel once per layer, every
+   call and decode step through the RMSNorm kernel twice per layer (the
+   block's pre-norm, and its gated norm with the gate fused), every
    decode step through the emit kernel.  Then a prefill chunk, a ragged
    tail and a decode step with the kernels against ``kernels="plain"``.
 
@@ -65,17 +66,20 @@ def device_ms(calls, reps: int = REPS) -> float:
     does) are captured once into a CUDA graph; the median over ``reps``
     replays between two CUDA events, divided by ``len(calls)``.  The
     graph removes the host's launch cost, which eager timing would add
-    wherever it exceeds the device time."""
+    wherever it exceeds the device time.  The calls are warmed up on the
+    side stream they are then captured on, which gives the attention
+    kernels that stream's merge tickets before the capture (none is
+    allocated while capturing)."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the capture stream
+    with torch.cuda.stream(side):
         for fn in calls:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for fn in calls:
             fn()
     graph.replay()
@@ -514,46 +518,74 @@ def run_ssd(gen, results):
 # squares in another order and rsqrtf move it by an fp32 ulp or two,
 # which can move the bf16 rounding by one bf16 ulp (2**-7 relative).
 RMS_TOL = {"bfloat16": (1e-5, 2**-7), "float32": (1e-6, 1e-5)}
+# (rows, d): a decode step's 8 rows and a 256-token prefill chunk's, at
+# Mamba2-1.3B's gated norm (d_inner 4096) and block pre-norm (d 2048)
+RMS_SHAPES = ((8, 4096), (256, 4096), (8, 2048), (256, 2048))
 
 
 def run_rmsnorm(gen, results):
+    """Every (rows, d) of ``RMS_SHAPES`` in bf16 and fp32, ungated and
+    gated; z is the column slice of an in_proj output (Mamba2's row of
+    2 d + 2 * 128 + d / 64 elements), read in place.  Beside the kernel:
+    its plain version, and ``F.rms_norm`` (ungated) or the unfused
+    sequence silu, cast, multiply, ``F.rms_norm`` (gated).  The record is
+    the gated 8 x 4096 bf16 norm of a decode step, the costlier of its two
+    launches a block; no one PyTorch call computes it (library_ms null)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm import ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
-    d, eps = 4096, 1e-5
-    for rows in (8, 256):  # a decode step's rows (the record's case), a prefill chunk's
+    eps = 1e-5
+    for rows, d in RMS_SHAPES:
+        width = 2 * d + 2 * 128 + d // 64
         for dtype in (torch.bfloat16, torch.float32):
-            elem = torch.tensor([], dtype=dtype).element_size()
-            nbytes = 2 * rows * d * elem + 4 * d
-            copies = min(64, max(1, -(-int(1.3 * L2_BYTES) // nbytes)))
-            xs = [(torch.randn((rows, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
-                  for _ in range(copies)]
-            scale = torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1
-            got, want = rmsnorm(xs[0], scale, eps), rmsnorm_ref(xs[0], scale, eps)
-            torch.cuda.synchronize()
-            atol, rtol = RMS_TOL[str(dtype).removeprefix("torch.")]
-            err = (got.float() - want.float()).abs()
-            ok = bool(torch.isfinite(got.float()).all()) and bool(
-                (err <= atol + rtol * want.float().abs()).all())
-            ms = device_ms([lambda x=x: rmsnorm(x, scale, eps) for x in xs])
-            plain_ms = device_ms([lambda x=x: rmsnorm_ref(x, scale, eps) for x in xs])
-            w = scale.to(dtype)  # F.rms_norm takes its weight in x's dtype
-            lib_ms = device_ms([lambda x=x: F.rms_norm(x, (d,), w, eps) for x in xs])
-            host_ms = eager_ms(lambda: rmsnorm(xs[0], scale, eps))
-            bms, by = bound_ms(nbytes, 4 * rows * d, dtype)
-            print(f"rmsnorm rows={rows} d={d} {dtype}: max_abs_err={err.max().item():.3e} "
-                  f"{'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms (eager call "
-                  f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, "
-                  f"bound {bms:.4f} ms ({by})", flush=True)
-            if not ok:
-                fail(f"rmsnorm rows={rows} {dtype} disagrees with its plain version")
-            if "rmsnorm" not in results:
-                results["rmsnorm"] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
-            del xs
+            for gated in (False, True):
+                elem = torch.tensor([], dtype=dtype).element_size()
+                nbytes = (3 if gated else 2) * rows * d * elem + 4 * d
+                copies = min(64, max(1, -(-int(1.3 * L2_BYTES) // nbytes)))
+                ys = [(torch.randn((rows, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+                      for _ in range(copies)]
+                zs = [(torch.randn((rows, width), generator=gen, device="cuda") * 2).to(dtype)[:, :d]
+                      if gated else None for _ in range(copies)]
+                scale = torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1
+                cases = list(zip(ys, zs))
+                got = ops.rmsnorm(ys[0], scale, eps, gate=zs[0])
+                want = rmsnorm_ref(ys[0], scale, eps, gate=zs[0])
+                torch.cuda.synchronize()
+                atol, rtol = RMS_TOL[str(dtype).removeprefix("torch.")]
+                err = (got.float() - want.float()).abs()
+                ok = bool(torch.isfinite(got.float()).all()) and bool(
+                    (err <= atol + rtol * want.float().abs()).all())
+                ms = device_ms([lambda y=y, z=z: ops.rmsnorm(y, scale, eps, gate=z)
+                                for y, z in cases])
+                plain_ms = device_ms([lambda y=y, z=z: rmsnorm_ref(y, scale, eps, gate=z)
+                                      for y, z in cases])
+                w = scale.to(dtype)  # F.rms_norm takes its weight in x's dtype
+
+                def gate_ops(y, z):  # what the gate cost in plain ops before the fusion
+                    return y if z is None else y * F.silu(z.float()).to(dtype)
+
+                lib_ms = device_ms([lambda y=y, z=z: F.rms_norm(gate_ops(y, z), (d,), w, eps)
+                                    for y, z in cases])
+                host_ms = eager_ms(lambda: ops.rmsnorm(ys[0], scale, eps, gate=zs[0]))
+                bms, by = bound_ms(nbytes, (9 if gated else 4) * rows * d, dtype)
+                lib_name = "silu+cast+mul+F.rms_norm" if gated else "F.rms_norm"
+                line = (f"rmsnorm rows={rows} d={d} {dtype} gated={gated}: max_abs_err="
+                        f"{err.max().item():.3e} {'ok' if ok else 'FAILED'}; device kernel "
+                        f"{ms:.4f} ms (eager call {host_ms:.4f} ms), plain "
+                        f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+                        f"bound/kernel {bms / ms:.3f})")
+                print(line, flush=True)
+                if not ok:
+                    fail(f"rmsnorm rows={rows} d={d} {dtype} gated={gated} disagrees with its "
+                         f"plain version")
+                if (rows, d, dtype, gated) == (8, 4096, torch.bfloat16, True):
+                    results["rmsnorm"] = dict(max_abs_err=err.max().item(), ms=ms,
+                                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                              library_ms=None)
+                del ys, zs, cases
 
 
 # ---------------------------------------------------------------------------
@@ -816,8 +848,9 @@ def run_ssm_end_to_end(cfg, params):
     rng = np.random.default_rng(3)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, 294)), device="cuda")
     lengths = torch.full((b,), 293, dtype=torch.int32, device="cuda")
-    counted = {"cuda": (dict(NO_LAUNCHES, ssd=layers, rmsnorm=layers),
-                        dict(NO_LAUNCHES, rmsnorm=layers, emit_norm_logits=1))}
+    # each block's pre-norm and gated norm go through the RMSNorm kernel
+    counted = {"cuda": (dict(NO_LAUNCHES, ssd=layers, rmsnorm=2 * layers),
+                        dict(NO_LAUNCHES, rmsnorm=2 * layers, emit_norm_logits=1))}
     logits = {}
 
     def serve(p, c_cfg, mode, key):
@@ -973,7 +1006,7 @@ def main() -> int:
     _, ssm_launches = run_engine(
         cfg, params, "kernels=auto", prefill_chunk=cfg.ssm.chunk_size,
         want=lambda steps, chunks: dict(NO_LAUNCHES, ssd=chunks * layers,
-                                        rmsnorm=(steps + chunks) * layers,
+                                        rmsnorm=2 * (steps + chunks) * layers,
                                         emit_norm_logits=steps))
     launches["ssd"], launches["rmsnorm"] = ssm_launches["ssd"], ssm_launches["rmsnorm"]
     run_ssm_end_to_end(cfg, params)

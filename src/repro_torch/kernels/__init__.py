@@ -17,8 +17,11 @@ checks its operands and launches the kernel); the CUDA sources are under
 * ``ssd`` -- Mamba-2 SSD: the intra-chunk kernel plus the cross-chunk
   recurrence (``ssd_chunked_cuda``); ``models.ssm.ssm_block`` dispatches
   it on every prefill chunk and full-sequence forward.
-* ``rmsnorm`` -- row-wise RMSNorm; ``ssm_block`` dispatches it for the
-  Mamba-2 gated norm.  Block norms stay plain PyTorch in every mode.
+* ``rmsnorm`` -- row-wise RMSNorm, with an optional fused gate
+  ``x * silu(z)``; under ``"cuda"`` ``ssm_block`` dispatches it for the
+  Mamba-2 gated norm and ``models.transformer`` for every block pre-norm
+  of an rmsnorm model.  Final norms and OLMo's layernorm stay plain
+  PyTorch (on the decode path the emit kernel computes the final norm).
 
 Model code selects implementations through :func:`get_impl` driven by the
 ``kernels`` config knob (``"plain" | "cuda" | "auto"``).  ``"auto"``
@@ -201,22 +204,62 @@ def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return _FUNCS[key]
 
 
-_TICKETS: dict[torch.device, torch.Tensor] = {}
+_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
+# Tickets for launches captured into CUDA graphs: a zeroed buffer per
+# device and the offset of its first ticket not yet handed out.
+_CAPTURE_RESERVE: dict[torch.device, list] = {}
+# Each captured launch takes a slice of its own; the reserve keeps room
+# for this many launches at the count of the last call outside a capture.
+CAPTURE_LAUNCHES = 256
+# Buffers replaced by larger ones: kept for the life of the process, since
+# a CUDA graph captured earlier may still point at them.
+_RETIRED: list[torch.Tensor] = []
 
 
-def merge_tickets(device: torch.device, count: int) -> torch.Tensor:
-    """At least ``count`` int32 merge tickets on ``device``, zeroed once.
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def merge_tickets(device: torch.device, count: int, stream: int) -> torch.Tensor:
+    """At least ``count`` int32 merge tickets for one launch on ``stream``
+    (the ``cuda_stream`` handle the kernel is launched on) of ``device``.
 
     The attention kernels that split a row over blocks count finished
     splits here with atomics; the split that merges resets its ticket, so
-    every launch leaves the buffer zeroed (a CUDA-graph replay finds it
-    so).  Launches on one stream run in order and share the buffer; two
-    launches running at once on two streams would collide in it (nothing
-    in the port does that)."""
-    t = _TICKETS.get(device)
+    every launch leaves its tickets zeroed (a CUDA-graph replay finds them
+    so).  Eager launches on one stream run in order and share its buffer;
+    two streams never share one.  A launch captured into a CUDA graph
+    takes tickets of its own, a slice of a buffer reserved outside any
+    capture: a graph may be replayed on any stream, beside eager work or
+    another graph, and meets no other launch's tickets.  Nothing is
+    allocated while capturing: each call outside a capture keeps room in
+    the reserve for :data:`CAPTURE_LAUNCHES` launches of its count, and a
+    capture that finds too little raises.  No buffer that was handed out
+    is ever freed (a graph may still use it)."""
+    device = torch.device(device)
+    if _capturing(device):
+        reserve = _CAPTURE_RESERVE.get(device)
+        if reserve is None or reserve[0].numel() - reserve[1] < count:
+            raise RuntimeError(
+                f"merge tickets: {count} needed in a capture, "
+                f"{0 if reserve is None else reserve[0].numel() - reserve[1]} reserved; "
+                f"call the wrapper once at the largest shape before capture"
+            )
+        start = reserve[1]
+        reserve[1] += count
+        return reserve[0][start:start + count]
+    key = (device, stream)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < count:
-        t = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
+        if t is not None:
+            _RETIRED.append(t)
+        t = _TICKETS[key] = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+    reserve = _CAPTURE_RESERVE.get(device)
+    if reserve is None or reserve[0].numel() - reserve[1] < CAPTURE_LAUNCHES * count:
+        if reserve is not None:
+            _RETIRED.append(reserve[0])
+        _CAPTURE_RESERVE[device] = [
+            torch.zeros(max(CAPTURE_LAUNCHES * count, 65536), dtype=torch.int32, device=device), 0]
     return t
 
 

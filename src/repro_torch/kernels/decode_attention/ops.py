@@ -8,9 +8,10 @@ tensor launches the kernel on the current stream or raises.
 The kernel splits each row's S axis over blocks (:func:`decode_split`
 picks the split) and merges the splits in the same launch: the last
 split of a (row, KV head) to finish takes an atomic ticket and merges.
-The tickets are ``kernels.merge_tickets``: one zeroed int32 buffer per
-device that every launch leaves zeroed; two calls running at once on two
-streams would share it (nothing in the port does that).
+The tickets are ``kernels.merge_tickets``, which every launch leaves
+zeroed: one int32 buffer per (device, stream) for eager calls, and
+tickets of its own for each launch captured into a CUDA graph, so no two
+launches that may run at once share tickets.
 """
 from __future__ import annotations
 
@@ -116,14 +117,15 @@ def fused_decode_attention(
     rows, splits = decode_split(b, kv, s, K.sm_count(q.device))
     scratch = torch.empty(max(partial_floats(b, h, dh, splits), 1), dtype=torch.float32,
                           device=q.device)
-    tickets = K.merge_tickets(q.device, b * kv)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = K.merge_tickets(q.device, b * kv, stream)
     fn = K.kernel_function("decode_attention", "decode_attention", _ARGTYPES)
     code = fn(
         _DTYPES[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
         tickets.numel(), b, s, h, kv, dh, rows,
-        float(softmax_scale or dh**-0.5), torch.cuda.current_stream(q.device).cuda_stream,
+        float(softmax_scale or dh**-0.5), stream,
     )
     K.check_launch("decode_attention", code)
     K.LAUNCHES["decode_attention"] += 1

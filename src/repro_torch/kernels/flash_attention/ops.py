@@ -11,8 +11,8 @@ a CUDA tensor launches the kernel on the current stream or raises.
 In bf16 the kernel splits the keys a query tile can see over blocks
 where the query tiles alone leave SMs idle (:func:`flash_split`), and
 the last split of a tile to finish merges the splits in the same launch
-through ``kernels.merge_tickets`` (one buffer per device: two calls
-running at once on two streams would share it).
+through ``kernels.merge_tickets`` (one buffer per device and stream for
+eager calls, tickets of its own for each launch captured into a graph).
 """
 from __future__ import annotations
 
@@ -127,7 +127,8 @@ def _launch(q, k, v, *, heads_first, causal, q_offset, kv_len, softmax_scale):
         rows, keys, splits = TILE, TILE * max(1, -(-sk // TILE)), 1
     scratch = torch.empty(max(partial_floats(b, h, sq, dh, splits, rows), 1),
                           dtype=torch.float32, device=q.device)
-    tickets = K.merge_tickets(q.device, b * h * -(-sq // rows))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = K.merge_tickets(q.device, b * h * -(-sq // rows), stream)
     fn = K.kernel_function("flash_attention", "flash_attention", _ARGTYPES)
     code = fn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -135,8 +136,7 @@ def _launch(q, k, v, *, heads_first, causal, q_offset, kv_len, softmax_scale):
         *q_str, *k_str, int(bool(causal)), q_offset,
         float(softmax_scale if softmax_scale is not None else dh**-0.5),
         rows, keys, splits, scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
-        tickets.numel(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        tickets.numel(), stream,
     )
     K.check_launch("flash_attention", code)
     K.LAUNCHES["attention"] += 1

@@ -17,10 +17,10 @@ Layout per block (d_inner = expand * d_model, H = d_inner / head_dim):
 Kernels (``ssm_block``'s resolved ``kernels`` mode): under ``"cuda"`` a
 block of more than one token runs its SSD through the intra-chunk kernel
 (``get_impl("ssd", "cuda")``, the sequential cross-chunk scan) and every
-block's gated norm through the RMSNorm kernel; ``"plain"`` runs
-:func:`ssd_chunked` and ``layers.rmsnorm`` as the JAX model does.  A
-one-token decode step keeps the closed-form :func:`_ssd_decode_step` in
-every mode.
+block's gated norm, the gate ``y * silu(z)`` included, through the
+RMSNorm kernel; ``"plain"`` runs :func:`ssd_chunked` and
+``layers.rmsnorm`` as the JAX model does.  A one-token decode step keeps
+the closed-form :func:`_ssd_decode_step` in every mode.
 """
 from __future__ import annotations
 
@@ -189,11 +189,12 @@ def ssm_block(params, x, cfg: ArchConfig, ssm: SSMConfig, *, cache=None, kernels
                        initial_state=init_state)
 
     y = y.reshape(bsz, s, d_inner)
-    # gated RMSNorm (Mamba-2): norm(y * silu(z))
-    gated = y * F.silu(z.float()).to(y.dtype)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)); the kernel computes the
+    # gate in the same launch, reading z in place from proj
     if kernels == "cuda":
-        y = get_impl("rmsnorm", "cuda")(gated, params["norm_scale"], cfg.norm_eps)
+        y = get_impl("rmsnorm", "cuda")(y, params["norm_scale"], cfg.norm_eps, gate=z)
     else:
+        gated = y * F.silu(z.float()).to(y.dtype)
         y = L.rmsnorm({"scale": params["norm_scale"]}, gated, cfg.norm_eps)
     out = torch.einsum("bsi,id->bsd", y, params["out_proj"])
     return out, {"conv": new_conv, "state": final}

@@ -194,8 +194,14 @@ def _num_groups(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _norm(cfg, params, x):
+def _norm(cfg, params, x, kernels="plain"):
+    """A block's norm.  ``kernels`` is the resolved mode: under ``"cuda"``
+    an rmsnorm runs the RMSNorm kernel (the block pre-norms pass it); the
+    final norms call this in ``"plain"``, and OLMo's non-parametric
+    layernorm is plain in every mode."""
     if cfg.norm == "rmsnorm":
+        if kernels == "cuda":
+            return get_impl("rmsnorm", "cuda")(x, params["scale"], cfg.norm_eps)
         return L.rmsnorm(params, x, cfg.norm_eps)
     return L.layernorm_nonparam(x, cfg.norm_eps)
 
@@ -281,7 +287,7 @@ def _apply_group(
         name = f"block{i}"
         blk = group_params[name]
         cache_i = None if group_cache is None else group_cache[name]
-        h = _norm(cfg, blk.get("norm_mixer"), x)
+        h = _norm(cfg, blk.get("norm_mixer"), x, kernels)
         if plan.mixer == "attn":
             out, kv = _self_attn(
                 blk["attn"], h, cfg, positions=positions, cache=cache_i,
@@ -301,7 +307,7 @@ def _apply_group(
                 kv_out[name] = c_new
         x = x + out
         if plan.ffn != "none":
-            h = _norm(cfg, blk.get("norm_ffn"), x)
+            h = _norm(cfg, blk.get("norm_ffn"), x, kernels)
             x = x + L.mlp(blk["mlp"], h)
     return x, kv_out
 
@@ -325,8 +331,10 @@ def forward(
     (groups, B, S, KV, dh), zero-padded along S to ``cache_pad_to`` (a
     Mamba block: its conv and SSD state, stacked, not padded).
     ``kernels`` (None inherits ``cfg.kernels``) picks, under
-    ``attn_impl="flash"``, the flash kernel or its plain version, and
-    for Mamba blocks the SSD and RMSNorm kernels or their plain versions.
+    ``attn_impl="flash"``, the flash kernel or its plain version, for
+    Mamba blocks the SSD and RMSNorm kernels or their plain versions, and
+    for an rmsnorm model's block pre-norms the RMSNorm kernel or
+    ``layers.rmsnorm``.  The final norm is plain in every mode.
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
@@ -429,7 +437,8 @@ def decode_step(
     ``kernels`` (None inherits ``cfg.kernels``) selects the per-op
     implementations (see ``repro_torch.kernels``): ``"cuda"`` runs the
     fused decode-attention and emit kernels (and each Mamba block's gated
-    norm through the RMSNorm kernel), ``"plain"`` the PyTorch versions,
+    norm and an rmsnorm model's block pre-norms through the RMSNorm
+    kernel), ``"plain"`` the PyTorch versions,
     ``"auto"`` the kernels on a CUDA device.  ``attn_impl`` applies where
     the decode-attention kernel does not run."""
     L.check_attn_impl(attn_impl)
@@ -479,9 +488,10 @@ def prefill_step(
     ``attn_impl="flash"``, the flash kernel (``"cuda"``, or ``"auto"`` on
     a CUDA device) or its plain version; the chunk's queries sit at
     ``q_offset = pos`` and see ``kv_len = pos + C`` keys.  Mamba blocks
-    run their SSD and gated norm through the SSD and RMSNorm kernels
-    under the same mode.  The other ops of prefill run plain PyTorch in
-    every mode.
+    run their SSD and gated norm through the SSD and RMSNorm kernels,
+    and an rmsnorm model's block pre-norms through the RMSNorm kernel,
+    under the same mode.  The other ops of prefill, the final norm among
+    them, run plain PyTorch in every mode.
 
     A Mamba block folds every token of the chunk into its conv and SSD
     state, pad tokens included: a ragged tail of an SSM model is

@@ -49,6 +49,21 @@ def _gen(seed):
     return g
 
 
+def _capture(fn, stream=None):
+    """A CUDA graph of ``fn`` and its output: ``fn`` runs once on the
+    capture stream first, which reserves the attention kernels' merge
+    tickets for the capture (none is allocated while capturing)."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    return graph, out
+
+
 def _decode_args(gen, b, s, h, kv, dh, dtype, pos):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -159,9 +174,8 @@ def test_decode_attention_twice_and_in_a_graph(dtype):
         want = decode_attention_ref(*args, pos=pos, kv_len=kv_len)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     static = [t.clone() for t in cases[0][0]], cases[0][1].clone(), cases[0][2].clone()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fused_decode_attention(*static[0], pos=static[1], kv_len=static[2])
+    graph, out = _capture(lambda: fused_decode_attention(*static[0], pos=static[1],
+                                                         kv_len=static[2]))
     for args, pos, kv_len in cases[1:]:
         for dst, src in zip(static[0] + [static[1], static[2]], list(args) + [pos, kv_len]):
             dst.copy_(src)
@@ -232,8 +246,9 @@ def test_decode_step_kernels_match_plain():
     got, c_got = T.decode_step(params, cache, cfg, tokens=tokens, lengths=lengths)
     want, c_want = T.decode_step(params, copy, cfg, tokens=tokens, lengths=lengths,
                                  kernels="plain")
+    # the block pre-norms (2 a layer) of the prefill and of the decode step
     assert K.LAUNCHES == {"decode_attention": 2, "emit_norm_logits": 1, "attention": 0,
-                          "ssd": 0, "rmsnorm": 0}
+                          "ssd": 0, "rmsnorm": 8}
     top = want.abs().amax(-1, keepdim=True)
     assert ((got - want).abs() <= 4 * torch.exp2(torch.floor(torch.log2(top)) - 7)).all()
     # the row written at each position is the same on both paths (layer 0)
@@ -316,9 +331,7 @@ def test_flash_attention_twice_and_in_a_graph():
         torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
                                    flash_attention_ref(q, k, v, **kw).float(), atol=tol, rtol=tol)
     static = [t.clone() for t in cases[0]]
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = flash_attention(*static, **kw)
+    graph, out = _capture(lambda: flash_attention(*static, **kw))
     for case in cases[1:]:
         for dst, src in zip(static, case):
             dst.copy_(src)
@@ -326,6 +339,111 @@ def test_flash_attention_twice_and_in_a_graph():
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), flash_attention_ref(*case, **kw).float(),
                                    atol=tol, rtol=tol)
+
+
+def test_attention_on_two_streams_at_once():
+    """Decode attention on one stream and flash attention on another, many
+    launches of each in flight together: each stream has its own merge
+    tickets, so every split merges right."""
+    dec = _decode_args(_gen(21), 8, 1024, 16, 16, 128, torch.bfloat16,
+                       [1023, 517, 128, 64, 900, 1000, 3, 0])
+    fl = _flash_args(_gen(22), 1, 128, 1024, 16, 16, 128, torch.bfloat16)
+    fkw = dict(causal=True, q_offset=512, kv_len=640)
+    want_d = decode_attention_ref(*dec[0], pos=dec[1], kv_len=dec[2])
+    want_f = flash_attention_ref(*fl, **fkw)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    outs = [], []
+    for _ in range(3):
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        for _ in range(40):
+            with torch.cuda.stream(streams[0]):
+                outs[0].append(fused_decode_attention(*dec[0], pos=dec[1], kv_len=dec[2]))
+            with torch.cuda.stream(streams[1]):
+                outs[1].append(flash_attention(*fl, **fkw))
+        torch.cuda.synchronize()
+    tol = DECODE_TOL[torch.bfloat16]
+    for got in outs[0]:
+        torch.testing.assert_close(got.float(), want_d.float(), atol=tol, rtol=tol)
+    tol = FLASH_TOL[torch.bfloat16]
+    for got in outs[1]:
+        torch.testing.assert_close(got.float(), want_f.float(), atol=tol, rtol=tol)
+    keys = [(torch.device("cuda", torch.cuda.current_device()), st.cuda_stream) for st in streams]
+    assert K._TICKETS[keys[0]] is not K._TICKETS[keys[1]]
+    assert K.LAUNCHES["decode_attention"] == K.LAUNCHES["attention"] == 120
+
+
+def test_captured_decode_attention_survives_ticket_growth():
+    """A graph of decode attention keeps working after a larger flash call
+    on its stream replaces the stream's ticket buffer and the capture
+    reserve the graph's tickets lie in: both old buffers are kept alive,
+    so the memory the graph points at is never handed out again (here, to
+    tensors full of 1 allocated right after)."""
+    b, s, h, kv, dh = 8, 1024, 16, 16, 128
+    pos = [1023, 517, 128, 64, 900, 1000, 3, 0]
+    cases = [_decode_args(_gen(31 + i), b, s, h, kv, dh, torch.bfloat16, pos) for i in range(2)]
+    static = [t.clone() for t in cases[0][0]], cases[0][1].clone(), cases[0][2].clone()
+    stream = torch.cuda.Stream()
+    graph, out = _capture(lambda: fused_decode_attention(*static[0], pos=static[1],
+                                                         kv_len=static[2]), stream)
+    device = torch.device("cuda", torch.cuda.current_device())
+    old = K._TICKETS[device, stream.cuda_stream]
+    reserve = K._CAPTURE_RESERVE[device][0]
+    # 4 x 16 query heads x 65 tiles of 64 rows: 4160 tickets, more than the
+    # first 4096 and than the reserve keeps room for
+    q, k, v = (torch.randn(shape, generator=_gen(33), device="cuda")
+               for shape in ((4, 4160, 16, 32), (4, 64, 16, 32), (4, 64, 16, 32)))
+    with torch.cuda.stream(stream):
+        flash_attention(q, k, v, causal=False)
+        junk = [torch.full_like(t, 1) for t in (old, reserve) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert K._TICKETS[device, stream.cuda_stream].numel() > old.numel()
+    assert K._CAPTURE_RESERVE[device][0] is not reserve
+    assert any(t is old for t in K._RETIRED) and any(t is reserve for t in K._RETIRED)
+    args, p, n = cases[1]
+    for dst, src in zip(static[0] + [static[1], static[2]], list(args) + [p, n]):
+        dst.copy_(src)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        want = decode_attention_ref(*args, pos=p, kv_len=n)
+        tol = DECODE_TOL[torch.bfloat16]
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(old == 0) and torch.all(reserve == 0)
+    del junk
+
+
+def test_graphs_captured_on_one_stream_replay_on_two_streams():
+    """Two graphs of decode attention captured on one stream, replayed at
+    once on two other streams, many times, while eager decode attention
+    runs on the capture stream: each captured launch has tickets of its
+    own, so every split merges right."""
+    b, s, h, kv, dh = 8, 1024, 16, 16, 128
+    pos = [1023, 517, 128, 64, 900, 1000, 3, 0]
+    cases = [_decode_args(_gen(41 + i), b, s, h, kv, dh, torch.bfloat16, pos) for i in range(3)]
+    capture = torch.cuda.Stream()
+    graphs = [_capture(lambda args=args, p=p, n=n: fused_decode_attention(
+        *args, pos=p, kv_len=n), capture) for args, p, n in cases[:2]]
+    wants = [decode_attention_ref(*args, pos=p, kv_len=n) for args, p, n in cases]
+    replay = torch.cuda.Stream(), torch.cuda.Stream()
+    eager = []
+    for st in replay:
+        st.wait_stream(torch.cuda.current_stream())
+    capture.wait_stream(torch.cuda.current_stream())
+    for _ in range(40):
+        for (graph, _), st in zip(graphs, replay):
+            with torch.cuda.stream(st):
+                graph.replay()
+        with torch.cuda.stream(capture):
+            args, p, n = cases[2]
+            eager.append(fused_decode_attention(*args, pos=p, kv_len=n))
+    torch.cuda.synchronize()
+    tol = DECODE_TOL[torch.bfloat16]
+    for (_, out), want in zip(graphs, wants):
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    for got in eager:
+        torch.testing.assert_close(got.float(), wants[2].float(), atol=tol, rtol=tol)
+    assert K.LAUNCHES["decode_attention"] == 2 * 2 + 40  # warm-ups, captures, eager calls
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -370,7 +488,7 @@ def test_prefill_flash_matches_plain():
                                  attn_impl="flash", logits_at=at, kernels="plain")
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 0, "attention": 4,
-                          "ssd": 0, "rmsnorm": 0}
+                          "ssd": 0, "rmsnorm": 8}
 
 
 # SSD intra-chunk kernel.  fp32: sums of up to 256 products in another
@@ -455,14 +573,46 @@ RMS_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2**-7), torch.float32: dict(atol
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", [(8, 4096), (256, 4096), (2, 3, 40), (1, 1, 8)], ids=str)
+@pytest.mark.parametrize("shape", [(8, 4096), (256, 4096), (8, 2048), (256, 2048), (2, 3, 40),
+                                   (1, 1, 8), (7, 8192), (3, 16384), (5, 520)], ids=str)
 def test_rmsnorm_matches_plain(dtype, shape):
+    """d 8192 at the one-pass path's 512 threads; d 16384, 520 and 40 on
+    the looped path."""
     gen = _gen(8)
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
     scale = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.2 + 1
     got = rmsnorm(x, scale, 1e-5)
     want = rmsnorm_ref(x, scale, 1e-5)
     assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), **RMS_TOL[dtype])
+    assert K.LAUNCHES["rmsnorm"] == 1
+
+
+def _gate(gen, shape, dtype, width=None):
+    """z as ssm_block hands it over: the first d columns of a wider row
+    (an in_proj output of ``width`` columns, Mamba2's 2 d + 2 N + H)."""
+    d = shape[-1]
+    width = width or 2 * d + 2 * 128 + max(d // 64, 8)
+    proj = (torch.randn(shape[:-1] + (width,), generator=gen, device="cuda") * 2).to(dtype)
+    return proj[..., :d]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(8, 4096), (256, 4096), (8, 2048), (256, 2048),
+                                   (2, 3, 40), (1, 1, 8), (5, 1, 512), (300, 1024),
+                                   (7, 8192), (3, 16384), (5, 520)], ids=str)
+def test_rmsnorm_gated_matches_plain(dtype, shape):
+    """The gate y * silu(z) fused, z read in place through its row stride;
+    d 8192 at the one-pass path's 1024 threads, d 16384 and 520 (no whole
+    number of warps) on the looped path."""
+    gen = _gen(10)
+    y = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    z = _gate(gen, shape, dtype)
+    assert z.is_contiguous() == (z.numel() == shape[-1])  # one row is contiguous
+    scale = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.2 + 1
+    got = rmsnorm(y, scale, 1e-5, gate=z)
+    want = rmsnorm_ref(y, scale, 1e-5, gate=z)
+    assert got.dtype == dtype and got.shape == y.shape
     torch.testing.assert_close(got.float(), want.float(), **RMS_TOL[dtype])
     assert K.LAUNCHES["rmsnorm"] == 1
 
@@ -485,6 +635,19 @@ def test_ssd_and_rmsnorm_wrappers_raise_rather_than_fall_back():
                 torch.ones(12, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(torch.zeros(64, 2, device="cuda").T, torch.ones(64, device="cuda"))
+    y, one = torch.zeros(4, 64, device="cuda"), torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="gate must be"):
+        rmsnorm(y, one, gate=torch.zeros(4, 32, device="cuda"))
+    with pytest.raises(TypeError, match="gate is"):
+        rmsnorm(y, one, gate=y.bfloat16())
+    with pytest.raises(ValueError, match="gate is on"):
+        rmsnorm(y, one, gate=y.cpu())
+    with pytest.raises(ValueError, match="16-byte"):
+        rmsnorm(y, one, gate=torch.zeros(4, 66, device="cuda")[:, :64])  # row stride 264 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        rmsnorm(y, one, gate=torch.zeros(4, 68, device="cuda")[:, 1:65])  # base off by 4 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        rmsnorm(y, one, gate=torch.zeros(4, 128, device="cuda")[:, ::2])  # strided in d
     assert K.LAUNCHES["ssd"] == K.LAUNCHES["rmsnorm"] == 0
 
 
@@ -492,7 +655,7 @@ def test_ssm_prefill_and_decode_kernels_match_plain():
     """A narrow Mamba-2 model: a chunk of 64, a ragged tail of 21, then a
     decode step, with the kernels and with their plain versions; each
     prefill call launches the SSD kernel once per layer, every call the
-    RMSNorm kernel once per layer."""
+    RMSNorm kernel twice per layer (pre-norm, gated norm)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
@@ -520,4 +683,4 @@ def test_ssm_prefill_and_decode_kernels_match_plain():
         torch.testing.assert_close(caches[0]["block0"][key], caches[1]["block0"][key],
                                    atol=1e-4, rtol=1e-4)
     assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 1, "attention": 0,
-                          "ssd": 4, "rmsnorm": 6}
+                          "ssd": 4, "rmsnorm": 12}

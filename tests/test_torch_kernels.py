@@ -284,3 +284,94 @@ def test_library_path_follows_the_source(monkeypatch, tmp_path):
     before = K.library_path("decode_attention")
     monkeypatch.setattr(K, "CSRC", tmp_path)
     assert K.library_path("decode_attention") != before
+
+
+# ---------------------------------------------------------------------------
+# Merge tickets: one buffer per (device, stream) for eager launches, a
+# slice of their own for captured ones, never freed, no allocation while
+# capturing (the bookkeeping, on CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tickets(monkeypatch):
+    monkeypatch.setattr(K, "_TICKETS", {})
+    monkeypatch.setattr(K, "_CAPTURE_RESERVE", {})
+    monkeypatch.setattr(K, "_RETIRED", [])
+    return torch.device("cpu")
+
+
+def _retired(t):
+    return any(r is t for r in K._RETIRED)
+
+
+def test_merge_tickets_one_buffer_per_stream(tickets):
+    a = K.merge_tickets(tickets, 10, stream=1)
+    assert a.dtype == torch.int32 and a.numel() == 4096 and torch.all(a == 0)
+    assert K.merge_tickets(tickets, 4096, stream=1) is a  # launches on one stream share it
+    b = K.merge_tickets(tickets, 10, stream=2)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    assert K.merge_tickets(tickets, 10, stream=1) is a
+    assert set(K._TICKETS) == {(tickets, 1), (tickets, 2)}
+
+
+def test_merge_tickets_growth_keeps_the_old_buffer(tickets):
+    a = K.merge_tickets(tickets, 100, stream=7)
+    b = K.merge_tickets(tickets, 5000, stream=7)
+    assert b.numel() == 5000 and torch.all(b == 0) and b is not a
+    assert _retired(a)  # still referenced: a captured graph may point at it
+    assert K.merge_tickets(tickets, 4096, stream=7) is b
+    c = K.merge_tickets(tickets, 9000, stream=7)
+    assert _retired(a) and _retired(b) and K._TICKETS[tickets, 7] is c
+
+
+def test_merge_tickets_refuse_to_allocate_while_capturing(tickets, monkeypatch):
+    a = K.merge_tickets(tickets, 100, stream=3)
+    reserve = K._CAPTURE_RESERVE[tickets][0]
+    assert reserve.numel() >= K.CAPTURE_LAUNCHES * 100 and torch.all(reserve == 0)
+    monkeypatch.setattr(K, "_capturing", lambda device: True)
+    got = [K.merge_tickets(tickets, 100, stream=s) for s in (3, 3, 4)]  # 4: no buffer yet
+    for t in got:
+        assert t.numel() == 100 and t.data_ptr() != a.data_ptr()
+        assert t.untyped_storage().data_ptr() == reserve.untyped_storage().data_ptr()
+    with pytest.raises(RuntimeError, match="before capture"):
+        K.merge_tickets(tickets, reserve.numel(), stream=3)
+    assert K._TICKETS == {(tickets, 3): a} and K._RETIRED == []
+    assert K._CAPTURE_RESERVE[tickets][0] is reserve
+
+
+def test_merge_tickets_captured_launches_own_their_tickets(tickets, monkeypatch):
+    """Two captured launches never share a ticket, whatever the streams
+    their graphs are replayed on: consecutive disjoint slices."""
+    K.merge_tickets(tickets, 128, stream=5)
+    monkeypatch.setattr(K, "_capturing", lambda device: True)
+    spans = []
+    for stream in (5, 5, 6, 5):
+        t = K.merge_tickets(tickets, 128, stream=stream)
+        start = (t.data_ptr() - K._CAPTURE_RESERVE[tickets][0].data_ptr()) // 4
+        spans.append((start, start + t.numel()))
+    assert spans == [(128 * i, 128 * (i + 1)) for i in range(4)]
+
+
+def test_merge_tickets_reserve_is_kept_when_replaced(tickets, monkeypatch):
+    """A call outside a capture that finds too little room in the reserve
+    retires it (graphs captured earlier hold slices of it) and reserves
+    anew; then a capture of the larger count fits."""
+    K.merge_tickets(tickets, 100, stream=1)
+    old = K._CAPTURE_RESERVE[tickets][0]
+    monkeypatch.setattr(K, "_capturing", lambda device: True)
+    K.merge_tickets(tickets, 100, stream=1)
+    with pytest.raises(RuntimeError, match="before capture"):
+        K.merge_tickets(tickets, old.numel(), stream=1)
+    monkeypatch.setattr(K, "_capturing", lambda device: False)
+    K.merge_tickets(tickets, old.numel(), stream=1)
+    assert _retired(old) and K._CAPTURE_RESERVE[tickets][0] is not old
+    assert K._CAPTURE_RESERVE[tickets][1] == 0
+    monkeypatch.setattr(K, "_capturing", lambda device: True)
+    assert K.merge_tickets(tickets, old.numel(), stream=1).numel() == old.numel()
+
+
+def test_merge_tickets_capture_query_only_on_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    assert not K._capturing(torch.device("cpu"))
+    assert K._capturing(torch.device("cuda", 0))

@@ -34,6 +34,7 @@ from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
 from repro.kernels.ssd.kernel import ssd_intra_chunk as jax_ssd_intra_chunk
 from repro.kernels.ssd.ops import ssd_chunked_pallas as jax_ssd_chunked_pallas
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
+from repro.models import layers as JL
 from repro.models import ssm as JS
 from repro.models import transformer as JT
 from repro.models.params import init_params as jax_init_params
@@ -45,6 +46,7 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_intra_chunk_ref, ssd_ref
+from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamSpec, params_from_numpy
@@ -368,6 +370,77 @@ def test_rmsnorm_wrapper_refuses_other_devices():
         rms_ops.rmsnorm(torch.zeros(2, 8, device="meta"), torch.ones(8))
 
 
+def _gated_inputs(dtype, shape, width):
+    """y, and z as ssm_block hands it over: the first d columns of an
+    in_proj output of ``width`` columns (a strided view, no copy)."""
+    rng = np.random.default_rng(15)
+    y = rng.normal(size=shape) * 2 + 0.3
+    proj = rng.normal(size=shape[:-1] + (width,)) * 2
+    scale = (rng.normal(size=shape[-1]) * 0.2 + 1).astype(np.float32)
+    return y, proj[..., : shape[-1]], scale
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape,width", [((8, 128), 304), ((2, 5, 96), 232), ((1, 3, 64), 200)],
+                         ids=str)
+def test_gated_rmsnorm_matches_the_gate_ops_jax_and_pallas(dtype, shape, width):
+    """The gated plain version on a strided z slice is, bitwise, the gate
+    ops ``ssm_block`` ran before the fusion followed by
+    ``layers.rmsnorm``; it matches the JAX ``ssm_block``'s gated norm and
+    the Pallas kernel (interpret mode) on the JAX gated product (TOL)."""
+    jdt, tdt = DTYPES[dtype]
+    y, z, scale = _gated_inputs(dtype, shape, width)
+    tproj = torch.as_tensor(np.concatenate([z, np.zeros(shape[:-1] + (width - shape[-1],))],
+                                           axis=-1)).to(tdt)
+    ty, tz, tscale = torch.as_tensor(y).to(tdt), tproj[..., : shape[-1]], torch.as_tensor(scale)
+    assert not tz.is_contiguous()
+    got = rmsnorm_ref(ty, tscale, 1e-5, gate=tz)
+    assert got.dtype == tdt and got.shape == ty.shape
+    want = L.rmsnorm({"scale": tscale}, ty * torch.nn.functional.silu(tz.float()).to(tdt), 1e-5)
+    assert torch.equal(got, want)
+    K.reset_launches()
+    assert torch.equal(rms_ops.rmsnorm(ty, tscale, 1e-5, gate=tz), got)
+    assert K.LAUNCHES["rmsnorm"] == 0
+
+    jy, jz = jnp.asarray(y, jdt), jnp.asarray(z, jdt)
+
+    def jax_gated(y, z, scale):  # the JAX ssm_block's gated norm, line for line
+        return JL.rmsnorm({"scale": scale}, y * jax.nn.silu(z.astype(jnp.float32)).astype(y.dtype),
+                          1e-5)
+
+    _close(got, _jit(jax_gated)(jy, jz, jnp.asarray(scale)), TOL[dtype])
+    rows = int(np.prod(shape[:-1]))
+    jgated = _jit(lambda y, z: y * jax.nn.silu(z.astype(jnp.float32)).astype(y.dtype))(jy, jz)
+    pallas = jax_rmsnorm_pallas(jgated.reshape(rows, -1), jnp.asarray(scale), eps=1e-5,
+                                block_rows=rows, interpret=True)
+    _close(got.reshape(rows, -1), pallas, TOL[dtype])
+
+
+def test_rmsnorm_wrapper_refuses_a_bad_gate():
+    """The gate's checks run on every device, so the CPU route refuses what
+    the kernel would: another shape, device or dtype, a row stride or base
+    off 16 bytes, a z strided in d."""
+    y, one = torch.zeros(4, 64), torch.ones(64)
+    proj = torch.zeros(4, 304)
+    assert torch.equal(rms_ops.rmsnorm(y, one, gate=proj[:, :64]), rmsnorm_ref(y, one))
+    bad = [
+        (torch.zeros(4, 32), ValueError, "gate must be"),
+        (torch.zeros(2, 2, 64), ValueError, "gate must be"),
+        (torch.zeros(4, 64, device="meta"), ValueError, "gate is on"),
+        (torch.zeros(4, 64, dtype=torch.bfloat16), TypeError, "gate is"),
+        (torch.zeros(4, 66)[:, :64], ValueError, "16-byte"),  # rows 264 bytes apart
+        (torch.zeros(4, 68)[:, 1:65], ValueError, "16-byte"),  # base 4 bytes off
+        (torch.zeros(4, 128)[:, ::2], ValueError, "16-byte"),  # strided in d
+        (torch.zeros(8, 64)[::2].T.contiguous().T, ValueError, "16-byte"),  # column-major
+    ]
+    for gate, err, match in bad:
+        with pytest.raises(err, match=match):
+            rms_ops.rmsnorm(y, one, gate=gate)
+    gate = torch.zeros(3, 2, 80)[:, :, :64].transpose(0, 1)  # rows 80 and 160 apart
+    with pytest.raises(ValueError, match="one stride"):
+        rms_ops.rmsnorm(torch.zeros(2, 3, 64), one, gate=gate)
+
+
 # ---------------------------------------------------------------------------
 # ssm_block and the model entry points
 # ---------------------------------------------------------------------------
@@ -445,6 +518,71 @@ def test_forward_prefill_and_decode_logits_match_jax(dtype):
         _close(tl, jl, tol)
     for k in ("conv", "state"):
         _close(tc["block0"][k], jc["block0"][k], tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kernel_route_of_the_model_matches_jax(dtype, monkeypatch):
+    """``forward``, two prefill chunks and two decode steps under
+    ``kernels="cuda"`` on CPU tensors (the wrappers run their plain
+    versions) against the JAX steps.  Every block hands its pre-norms and
+    every Mamba block its gated norm (the gate unapplied, z a strided
+    view) to the RMSNorm wrapper; ``layers.rmsnorm`` runs only for the final norm
+    (in the emit's plain version on a decode step)."""
+    jcfg, tcfg, jp, tp = _models(dtype)
+    tol = TOL[dtype]
+    layers = tcfg.num_layers
+    # the smoke config's blocks carry an MLP, whose pre-norm is a block norm too
+    pre_norms = layers * sum(1 + (plan.ffn != "none") for plan in T.block_plans(tcfg))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(T, "resolve_mode", lambda mode, device: "cuda")
+    calls = {"gated": 0, "plain": 0, "layers.rmsnorm": 0}
+    ref, layer_norm = rms_ops.rmsnorm_ref, L.rmsnorm
+
+    def spy_ref(x, scale, eps=1e-5, *, gate=None):
+        calls["plain" if gate is None else "gated"] += 1
+        assert gate is None or not gate.is_contiguous()  # read in place from in_proj
+        return ref(x, scale, eps, gate=gate)
+
+    def spy_layers(*args, **kw):
+        calls["layers.rmsnorm"] += 1
+        return layer_norm(*args, **kw)
+
+    monkeypatch.setattr(rms_ops, "rmsnorm_ref", spy_ref)
+    monkeypatch.setattr(L, "rmsnorm", spy_layers)
+
+    def counted(want_layers_rmsnorm):
+        assert calls == {"gated": layers, "plain": pre_norms,
+                         "layers.rmsnorm": want_layers_rmsnorm}
+        calls.update(gated=0, plain=0)
+        calls["layers.rmsnorm"] = 0
+
+    rng = np.random.default_rng(13)
+    toks = rng.integers(1, tcfg.vocab_size, size=(2, 16))
+    jl, _, _ = _jit(JT.forward, cfg=jcfg)(jp, tokens=jnp.asarray(toks))
+    tl, _, _ = T.forward(tp, tcfg, tokens=torch.as_tensor(toks), kernels="cuda")
+    _close(tl, jl, tol)
+    counted(1)
+
+    jprefill = _jit(JT.prefill_step, cfg=jcfg)
+    jdecode = _jit(JT.decode_step, cfg=jcfg)
+    jc, tc = JT.init_cache(jcfg, 2, 32), T.init_cache(tcfg, 2, 32, device="cpu")
+    for lo, hi in ((0, 8), (8, 11)):
+        jl, jc = jprefill(jp, jc, tokens=jnp.asarray(toks[:, lo:hi]), pos=lo)
+        tl, tc = T.prefill_step(tp, tc, tcfg, tokens=torch.as_tensor(toks[:, lo:hi]), pos=lo,
+                                kernels="cuda")
+        _close(tl, jl, tol)
+        counted(1)
+    for step in range(2):
+        lengths = np.full(2, 11 + step, np.int32)
+        jl, jc = jdecode(jp, jc, tokens=jnp.asarray(toks[:, 11 + step]),
+                         lengths=jnp.asarray(lengths))
+        tl, tc = T.decode_step(tp, tc, tcfg, tokens=torch.as_tensor(toks[:, 11 + step]),
+                               lengths=torch.as_tensor(lengths), kernels="cuda")
+        _close(tl, jl, tol)
+        counted(1)
+    for k in ("conv", "state"):
+        _close(tc["block0"][k], jc["block0"][k], tol)
+    assert K.LAUNCHES["rmsnorm"] == 0
 
 
 def test_forward_collects_the_ssm_state():
