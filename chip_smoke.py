@@ -28,6 +28,24 @@
    block's pre-norm, and its gated norm with the gate fused), every
    decode step through the emit kernel.  Then a prefill chunk, a ragged
    tail and a decode step with the kernels against ``kernels="plain"``.
+6. Stream phase: the paper's two algorithms under the port's
+   ``LazyEvaluator`` on the card, each ``collect`` (and the work around
+   it that stays on the card) under ``torch.cuda.set_sync_debug_mode
+   ("error")``, so that a cell which syncs with the host fails: the
+   sieve at the paper's ``primes`` (limit 20000, 256-wide blocks, 16
+   primes a cell: 2262 primes, against Eratosthenes); Fateman's
+   (1+x+y+z)^20 squared (12341 terms) through ``times`` (4 x-chunks, 8
+   terms a cell) and ``times_dense``, at 12 limbs with the factor
+   100000000001 (``stream_big``, against the exact product) and at 4
+   limbs (``stream``, against the exact product mod 2^52); and a
+   ``defer``-ed computation on the side stream, forced on the current
+   stream while other work runs there, against the same computation run
+   directly (bitwise).
+
+Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
+11), twice: the two runs must give the same tokens (the sampling key is
+a function of seed, request and token index), with the launch counts of
+the greedy ``"flash"`` run's formula.
 
 Any failure exits non-zero.  The line before the last is the ``kernels``
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
@@ -926,6 +944,121 @@ def run_ssm_end_to_end(cfg, params):
                 fail(f"end-to-end mamba {what} {dtype}: greedy tokens differ")
 
 
+# ---------------------------------------------------------------------------
+# Stream phase
+# ---------------------------------------------------------------------------
+
+BIG_FACTOR = 100000000001  # the paper's stream_big
+FATEMAN_POWER = 20
+FATEMAN_CAPACITY = 1776  # 1771 terms, padded to 4 x-chunks and 222 cells of 8
+
+
+class no_host_sync:
+    """Run the block with ``torch.cuda.set_sync_debug_mode("error")``: an
+    op that syncs the host with the card raises."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def timed_on_card(fn):
+    """``fn()`` under :class:`no_host_sync`; returns its value and the
+    wall time until the card finished it, in s."""
+    import torch
+
+    t = time.perf_counter()
+    with no_host_sync():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def run_stream_phase(smi: str) -> None:
+    """The sieve, both Fateman widths (stream and dense) and a deferred
+    computation, on the card; each checked against its host oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import polynomial as poly
+    from repro_torch.algorithms import sieve
+    from repro_torch.configs.paper_stream import CONFIG
+    from repro_torch.core import LazyEvaluator, defer
+
+    lazy = LazyEvaluator()
+    stream = sieve.sieve_stream(CONFIG.primes_limit, block_size=CONFIG.primes_block,
+                                primes_per_cell=CONFIG.primes_per_cell, device="cuda")
+    (primes, count), wall = timed_on_card(lambda: sieve.sieve_result(stream.collect(lazy)))
+    ref = sieve.reference_primes(CONFIG.primes_limit)
+    p = primes.cpu().numpy()
+    if len(ref) != 2262 or int(count) != len(ref) or not np.array_equal(p[p > 0], ref):
+        fail(f"sieve: {int(count)} primes below {CONFIG.primes_limit}, expected {len(ref)}")
+    print(f"stream sieve ({smi}): limit {CONFIG.primes_limit}, blocks of "
+          f"{CONFIG.primes_block}, {CONFIG.primes_per_cell} primes a cell: {stream.num_items} "
+          f"blocks x {stream.num_cells} cells, {int(count)} primes, equal to Eratosthenes, "
+          f"in {wall:.3f} s (Lazy, no host sync)", flush=True)
+
+    terms = poly.fateman_terms(FATEMAN_POWER)
+    t = time.perf_counter()
+    exact = poly.reference_product(terms, terms)
+    oracle = time.perf_counter() - t
+    for label, limbs, factor in (("stream_big", CONFIG.poly_limbs_big, BIG_FACTOR),
+                                 ("stream", CONFIG.poly_limbs_small, 1)):
+        mod = 1 << (13 * limbs)
+        scaled = {k: v * factor * factor for k, v in exact.items()}
+        want = {k: v % mod for k, v in scaled.items() if v % mod}
+        wraps = max(scaled.values()) >= mod
+        x = poly.fateman_poly(FATEMAN_POWER, FATEMAN_CAPACITY, limbs, factor, device="cuda")
+        got, wall = timed_on_card(lambda: poly.times(
+            x, x, evaluator=lazy, num_x_chunks=CONFIG.poly_x_chunks,
+            terms_per_cell=CONFIG.poly_terms_per_cell))
+        dense, dense_wall = timed_on_card(lambda: poly.times_dense(x, x))
+        for how, res in (("times", got), ("times_dense", dense)):
+            if poly.to_dict(res) != want:
+                fail(f"fateman {label}: {how} differs from the exact product"
+                     f"{' mod 2^%d' % (13 * limbs) if wraps else ''}")
+        bitwise = bool(torch.equal(got.keys, dense.keys) and torch.equal(got.coeffs, dense.coeffs))
+        print(f"stream fateman {label} ({smi}): (1+x+y+z)^{FATEMAN_POWER} squared, {limbs} limbs, "
+              f"factor {factor}: {len(want)} terms equal to the exact product"
+              f"{' mod 2^%d' % (13 * limbs) if wraps else ''} (largest coefficient "
+              f"2^{max(scaled.values()).bit_length() - 1}); times (Lazy, {CONFIG.poly_x_chunks} "
+              f"x-chunks, {x.capacity // CONFIG.poly_terms_per_cell} cells of "
+              f"{CONFIG.poly_terms_per_cell} terms) {wall:.3f} s, times_dense {dense_wall:.3f} s, "
+              f"the two bitwise equal: {bitwise}; host oracle {oracle:.1f} s", flush=True)
+
+    # defer: a side-stream computation, forced while the current stream works
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    a = torch.randn(4096, 4096, device="cuda", generator=gen)
+    b = torch.randn(4096, 4096, device="cuda", generator=gen)
+
+    def f(u, v):
+        return (torch.sin(u) * v + u.square()).cumsum(dim=1)
+
+    with no_host_sync():
+        fut = defer(f, a, b)
+        busy = a
+        for _ in range(8):  # other work on the current stream meanwhile
+            busy = torch.tanh(busy @ b) * 0.5
+        value = fut.force()
+        after = value[:, -1] + busy[:, 0]  # a consumer after the force
+    torch.cuda.synchronize()
+    if fut._stream == torch.cuda.current_stream():
+        fail("defer ran on the current stream")
+    if not torch.equal(value, f(a, b)) or not torch.isfinite(after).all():
+        fail("defer: the forced value differs from the direct computation")
+    print("stream defer: a side-stream computation forced on the current stream after 8 "
+          "matmuls there equals the direct computation bitwise (no host sync)", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -990,6 +1123,16 @@ def main() -> int:
     print(f"engine flash vs dense: {same}/{total} tokens agree position by position, "
           f"{sum(x == y for x, y in zip(dense_tokens, flash_tokens))}/{len(dense_tokens)} "
           f"requests identical", flush=True)
+    # temperature sampling: the key is a function of (seed, uid, ngen),
+    # so a second identical run gives the same tokens
+    hot = [run_engine(cfg, params, f"attn_impl=flash temperature=0.9 run {i}", olmo_want(True),
+                      prefill_chunk=128, attn_impl="flash", temperature=0.9, seed=11)[0]
+           for i in (1, 2)]
+    if hot[0] != hot[1]:
+        fail("temperature 0.9: two identical runs gave different tokens")
+    greedy_same = sum(a == b for x, y in zip(flash_tokens, hot[0]) for a, b in zip(x, y))
+    print(f"engine temperature 0.9 (seed 11): two runs identical; {greedy_same}/{total} tokens "
+          f"equal to the greedy flash run's", flush=True)
 
     # 4. End-to-end checks
     run_decode_end_to_end(cfg, params)
@@ -1010,6 +1153,11 @@ def main() -> int:
                                         emit_norm_logits=steps))
     launches["ssd"], launches["rmsnorm"] = ssm_launches["ssd"], ssm_launches["rmsnorm"]
     run_ssm_end_to_end(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    # 6. The paper's Stream programs under the Lazy evaluator on the card
+    run_stream_phase(smi)
 
     source = {
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",

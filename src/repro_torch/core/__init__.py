@@ -1,0 +1,65 @@
+"""Core: the paper's Stream-with-Future construct, in PyTorch.
+
+Public API (the ported part of ``repro.core``):
+  Stream, StreamResult — the combinator algebra front door:
+    Stream.source(items).map(f).through(cell_fn, states)
+          .zip(other, combine).concat(other).mask(pred)
+          .collect(evaluator)
+    Stream.feedback(init, n, emit) — the unfold combinator: item b
+          re-enters as emit(item b - lag)
+  LazyEvaluator, evaluate — the Lazy monad (the pipelined
+    FutureEvaluator is not ported yet)
+  StreamGraph IR internals (repro_torch.core.graph): lower_chain,
+    ChainProgram, run_chain_sequential
+  StreamProgram — deprecated single-chain adapter
+  Future, defer, HostFuture — futures on a side CUDA stream
+  SchedulePlan, build_plan, CombinedPlan, build_combined_plan,
+    build_backward_plan — the schedule zoo's tick tables
+  chunk_axis, unchunk_axis
+"""
+from repro_torch.core.chunking import chunk_axis, unchunk_axis
+from repro_torch.core.future import Future, HostFuture, defer
+from repro_torch.core.graph import (
+    ChainProgram,
+    Stream,
+    StreamResult,
+    lower_chain,
+    run_chain_sequential,
+)
+from repro_torch.core.schedules import (
+    BACKWARD_MODES,
+    SCHEDULES,
+    CombinedPlan,
+    SchedulePlan,
+    build_backward_plan,
+    build_combined_plan,
+    build_plan,
+)
+from repro_torch.core.stream import (
+    LazyEvaluator,
+    StreamProgram,
+    evaluate,
+)
+
+__all__ = [
+    "BACKWARD_MODES",
+    "ChainProgram",
+    "CombinedPlan",
+    "Future",
+    "HostFuture",
+    "LazyEvaluator",
+    "SCHEDULES",
+    "SchedulePlan",
+    "Stream",
+    "StreamProgram",
+    "StreamResult",
+    "build_backward_plan",
+    "build_combined_plan",
+    "build_plan",
+    "chunk_axis",
+    "defer",
+    "evaluate",
+    "lower_chain",
+    "run_chain_sequential",
+    "unchunk_axis",
+]

@@ -31,8 +31,10 @@
 //     SM.  The causal bound and kv_len decide which splits hold a valid
 //     key; the others exit at once.  Each split leaves fp32 (m, l,
 //     unnormalised acc) partials, and the last split of a query tile to
-//     finish, found by an atomic ticket, merges them in the same launch
-//     and resets the ticket to 0 (a CUDA-graph replay finds it zeroed).
+//     finish, found by an atomic ticket, merges them in the same launch,
+//     in split order (its own partial read back like the others, so the
+//     output is the same whichever split finished last), and resets the
+//     ticket to 0 (a CUDA-graph replay finds it zeroed).
 //     The tickets are kernels.merge_tickets, a per-device int32 buffer
 //     allocated once: two calls running at once on two streams would
 //     share it.  A tile whose keys fit one split writes its output
@@ -625,8 +627,10 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_wgmma_kernel(
     hopper::bar_sync(CONS);
     if (*ticket_s != nvalid - 1) return;
     __threadfence();
+    // Every split's partial, this one's read back too, summed in split
+    // order: the output does not depend on which split finished last.
     const float* ml0 = part_ml + tile_id * p.nsplit * BM * 2;
-    float big[2] = {m[0], m[1]};
+    float big[2] = {-INFINITY, -INFINITY};
 #pragma unroll 4
     for (int s2 = 0; s2 < nvalid; ++s2)
 #pragma unroll
@@ -634,16 +638,11 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_wgmma_kernel(
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       big[r] = big[r] == -INFINITY ? 0.f : big[r];
-      const float f = exp2f(m[r] - big[r]);
-      l[r] *= f;
-#pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
-        o[4 * i + 2 * r] *= f;
-        o[4 * i + 2 * r + 1] *= f;
-      }
+      l[r] = 0.f;
     }
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
     for (int s2 = 0; s2 < nvalid; ++s2) {
-      if (s2 == sp) continue;
       float wr[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {

@@ -20,8 +20,11 @@ sampling and retirement run in host Python between steps.
     prefill's attention core; ``"flash"`` runs the flash-attention kernel
     on a CUDA device.  Decode attention runs the fused decode-attention
     kernel there whatever the name.
-  * sampling: greedy argmax.  Temperature sampling, which must match
-    ``jax.random`` bit for bit, is not ported yet (ROADMAP A4) and raises.
+  * sampling, on the host from fp32 logits: greedy argmax, or at
+    ``temperature > 0`` the reference's Gumbel-max draw under the key
+    ``fold_in(fold_in(PRNGKey(seed), uid), ngen)`` (:mod:`.prng`, the
+    ``jax.random`` generator rebuilt in numpy), so a request's tokens
+    depend on (seed, uid, token index) only.
 
 Request lifecycle: bounded admission (``max_queue`` ->
 :class:`QueueFullError`), per-request deadlines, ``cancel(uid)``, and
@@ -43,13 +46,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.serve import prng
 
 PyTree = Any
-
-_NO_TEMPERATURE = (
-    "temperature sampling is not ported yet (ROADMAP A4: bit-exact "
-    "jax.random threefry sampling); use temperature=0 (greedy)"
-)
 
 
 class QueueFullError(RuntimeError):
@@ -75,7 +74,7 @@ class ServeConfig:
     prefill_chunk: int = 128
     max_new_tokens: int = 64
     eos_id: int = -1  # -1: never; run to max_new_tokens
-    temperature: float = 0.0  # 0 => greedy (the only mode ported)
+    temperature: float = 0.0  # 0 => greedy
     attn_impl: str = "dense"  # "dense" | "chunked" | "flash" (JAX's "pallas")
     seed: int = 0
     max_queue: int | None = None  # None: unbounded admission queue
@@ -96,12 +95,22 @@ def sample_token(logits, temperature: float, seed: int, uid, ngen):
     """Sample the next token from host logits ``(V,)`` or ``(B, V)``.
 
     Greedy (``temperature <= 0``) is an argmax with first-max
-    tie-breaking, as ``jnp.argmax``.  Temperature sampling raises
-    ``NotImplementedError`` (ROADMAP A4).
+    tie-breaking, as ``jnp.argmax``.  Temperature sampling draws
+    ``argmax(logits / T + gumbel(key))`` with the key
+    ``fold_in(fold_in(PRNGKey(seed), uid), ngen)``, as
+    ``jax.random.categorical`` does; a batch takes per-row ``uid`` and
+    ``ngen`` and gives what each row drawn alone gives.  The logits must
+    be fp32, as the reference's are at its sampler.
     """
-    if temperature > 0:
-        raise NotImplementedError(_NO_TEMPERATURE)
-    return np.argmax(np.asarray(logits), axis=-1).astype(np.int32)
+    logits = np.asarray(logits)
+    if temperature <= 0:
+        return np.argmax(logits, axis=-1).astype(np.int32)
+    if logits.dtype != np.float32:
+        raise TypeError(f"temperature sampling takes fp32 logits, got {logits.dtype}")
+    key = prng.request_key(seed, uid, ngen)
+    if key.shape[:-1] != logits.shape[:-1]:
+        raise ValueError(f"one (uid, ngen) per row: keys {key.shape[:-1]}, logits {logits.shape}")
+    return prng.categorical(key, logits / np.float32(temperature))
 
 
 class _EngineBase:
@@ -110,8 +119,6 @@ class _EngineBase:
     def __init__(self, params, cfg: ArchConfig, scfg: ServeConfig, device):
         if cfg.embeds_input:
             raise ValueError("the engine serves token-input archs")
-        if scfg.temperature > 0:
-            raise NotImplementedError(_NO_TEMPERATURE)
         L.check_attn_impl(scfg.attn_impl)
         self.device = resolve_device(device)
         table = params["embed"]["embedding"]
@@ -347,11 +354,15 @@ class Engine(_EngineBase):
         )
         self.decode_steps += 1
         logits = logits.cpu().numpy()
-        for i in slots:
+        # One batched draw over the active slots (as the reference's).
+        drawn = sample_token(
+            logits[slots], self.scfg.temperature, self.scfg.seed,
+            np.array([self.active[i].uid for i in slots], np.int32),
+            np.array([len(self.active[i].out_tokens) for i in slots], np.int32),
+        )
+        for i, tok in zip(slots, drawn.tolist()):
             req = self.active[i]
             self.lengths[i] += 1
-            tok = int(sample_token(logits[i], self.scfg.temperature,
-                                   self.scfg.seed, req.uid, len(req.out_tokens)))
             req.out_tokens.append(tok)
             hit_eos = tok == self.scfg.eos_id
             full = self.lengths[i] + 1 >= self.scfg.max_len

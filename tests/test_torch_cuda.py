@@ -341,6 +341,30 @@ def test_flash_attention_twice_and_in_a_graph():
                                    atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("sq,q_offset,kv_len", [(128, 512, 640), (128, 896, None),
+                                                 (70, 500, None), (2048, 0, None)])
+def test_flash_attention_is_repeatable(sq, q_offset, kv_len):
+    """The same inputs give the same bits, call after call: the last split
+    of a query tile sums every split's partial in split order, whichever
+    split finished last.  (Temperature sampling's reproducibility rests
+    on it: a one-ulp change of a logit can change a drawn token.)"""
+    sk = 2048 if sq == 2048 else 1024
+    q, k, v = _flash_args(_gen(21), 1, sq, sk, 16, 16, 128, torch.bfloat16)
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    first = flash_attention(q, k, v, **kw)
+    for _ in range(20):
+        assert torch.equal(flash_attention(q, k, v, **kw), first)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_attention_is_repeatable(dtype):
+    args, pos, kv_len = _decode_args(_gen(22), 8, 1024, 16, 16, 128, dtype,
+                                     [0, 1023, 517, 128, 64, 900, 1000, 3])
+    first = fused_decode_attention(*args, pos=pos, kv_len=kv_len)
+    for _ in range(20):
+        assert torch.equal(fused_decode_attention(*args, pos=pos, kv_len=kv_len), first)
+
+
 def test_attention_on_two_streams_at_once():
     """Decode attention on one stream and flash attention on another, many
     launches of each in flight together: each stream has its own merge
@@ -684,3 +708,107 @@ def test_ssm_prefill_and_decode_kernels_match_plain():
                                    atol=1e-4, rtol=1e-4)
     assert K.LAUNCHES == {"decode_attention": 0, "emit_norm_logits": 1, "attention": 0,
                           "ssd": 4, "rmsnorm": 12}
+
+
+# ---------------------------------------------------------------------------
+# The Stream core on the card: no host sync inside a chain, futures on a
+# side stream, the paper's algorithms against their host oracles
+# ---------------------------------------------------------------------------
+
+
+class _NoHostSync:
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def test_sync_guard_catches_a_host_sync():
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        with _NoHostSync():
+            x.sum().item()
+
+
+@pytest.mark.parametrize("explicit_stream", [False, True])
+def test_defer_on_a_side_stream_equals_direct(explicit_stream):
+    from repro_torch.core import defer
+
+    g = _gen(5)
+    a = torch.randn(1024, 1024, device="cuda", generator=g)
+    b = torch.randn(1024, 1024, device="cuda", generator=g)
+
+    def f(u, v):
+        return (torch.sin(u) * v + u.square()).cumsum(dim=1)
+
+    side = torch.cuda.Stream() if explicit_stream else None
+    with _NoHostSync():
+        fut = defer(f, a, b, stream=side)
+        busy = a
+        for _ in range(6):
+            busy = torch.tanh(busy @ b) * 0.5
+        mapped = fut.map(lambda v: v * 2.0)
+        value, doubled = fut.force(anchor=busy), mapped.force()
+        after = value[:, -1] + busy[:, 0]
+    torch.cuda.synchronize()
+    assert fut._stream != torch.cuda.current_stream()
+    if explicit_stream:
+        assert fut._stream == side
+    want = f(a, b)
+    assert torch.equal(value, want) and torch.equal(doubled, want * 2.0)
+    assert torch.isfinite(after).all()
+
+
+def test_sieve_on_the_card_matches_eratosthenes():
+    from repro_torch.algorithms import sieve
+    from repro_torch.core import LazyEvaluator
+
+    for limit, block, k in ((3000, 64, 4), (5000, 256, 16)):
+        stream = sieve.sieve_stream(limit, block_size=block, primes_per_cell=k, device="cuda")
+        with _NoHostSync():
+            primes, count = sieve.sieve_result(stream.collect(LazyEvaluator()))
+        ref = sieve.reference_primes(limit)
+        p = primes.cpu().numpy()
+        assert int(count) == len(ref)
+        np.testing.assert_array_equal(p[p > 0], ref)
+
+
+@pytest.mark.parametrize("limbs,factor", [(4, 1), (12, 100000000001)])
+def test_fateman_power6_on_the_card(limbs, factor):
+    """(1+x+y+z)^6 squared through times (4 x-chunks, 8 terms a cell) and
+    times_dense, against the exact product and the CPU's bits."""
+    from repro_torch.algorithms import polynomial as poly
+
+    x = poly.fateman_poly(6, 96, limbs, factor, device="cuda")
+    with _NoHostSync():
+        got = poly.times(x, x, num_x_chunks=4, terms_per_cell=8)
+        dense = poly.times_dense(x, x)
+    ref = poly.reference_product(poly.to_dict(x), poly.to_dict(x))
+    assert poly.to_dict(got) == ref and poly.to_dict(dense) == ref
+    xc = poly.fateman_poly(6, 96, limbs, factor, device="cpu")
+    cpu = poly.times(xc, xc, num_x_chunks=4, terms_per_cell=8)
+    assert torch.equal(got.keys.cpu(), cpu.keys) and torch.equal(got.coeffs.cpu(), cpu.coeffs)
+
+
+def test_sample_token_on_card_logits_equals_cpu_draw():
+    """Logits from the emit kernel, read back to the host, draw what the
+    same values drawn one row at a time on the CPU draw."""
+    from repro_torch.serve.engine import sample_token
+
+    g = _gen(6)
+    x = torch.randn(8, 1, 256, device="cuda", generator=g).to(torch.bfloat16)
+    w = (torch.randn(1000, 256, device="cuda", generator=g) * 0.2).to(torch.bfloat16)
+    logits = emit_norm_logits(x, w, norm="rmsnorm", scale=torch.ones(256, device="cuda"),
+                              tied=True).cpu().numpy()
+    assert logits.dtype == np.float32
+    uids, ngens = np.arange(8, dtype=np.int32) * 3, np.arange(8, dtype=np.int32) % 3
+    drawn = sample_token(logits, 0.9, 11, uids, ngens)
+    rows = np.array(logits.tolist(), np.float32)
+    assert drawn.tolist() == [int(sample_token(rows[i], 0.9, 11, int(u), int(n)))
+                              for i, (u, n) in enumerate(zip(uids, ngens))]
+    assert K.LAUNCHES["emit_norm_logits"] == 1

@@ -249,9 +249,25 @@ def test_drain_truncation_raises_with_uids(small_model):
 
 
 def test_temperature_sampling_not_ported(small_model):
+    """Temperature sampling, which raised here until it was ported, now
+    runs (tests/test_torch_sampling.py holds it to jax.random and to the
+    JAX Engine): a request's tokens depend on (seed, uid, token index)
+    only, not on its batch-mates; greedy keeps first-max tie-breaking."""
     cfg, params = small_model
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        Engine(params, cfg, ServeConfig(temperature=0.7), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        sample_token(np.zeros(4, np.float32), 0.7, 0, 0, 0)
+
+    def serve(prompts):
+        eng = Engine(params, cfg, ServeConfig(max_batch=2, max_len=64, prefill_chunk=4,
+                                              max_new_tokens=6, temperature=0.7, seed=3),
+                     device="cpu")
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run_until_drained()
+        return [r.out_tokens for r in reqs]
+
+    both = serve([np.array([5, 9, 2]), np.array([3, 1, 4, 1, 5])])
+    alone = serve([np.array([5, 9, 2])])
+    assert both[0] == alone[0] and len(both[1]) == 6
+    lg = np.random.default_rng(0).normal(size=(3, 64)).astype(np.float32)
+    batched = sample_token(lg, 0.7, 3, np.array([0, 1, 2]), np.array([4, 0, 1]))
+    assert batched.tolist() == [int(sample_token(lg[i], 0.7, 3, i, g))
+                                for i, g in enumerate([4, 0, 1])]
     assert int(sample_token(np.array([0.0, 2.0, 2.0, 1.0]), 0.0, 0, 0, 0)) == 1

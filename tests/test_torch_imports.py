@@ -119,3 +119,31 @@ def test_init_params_shapes_dtypes_and_seed():
     # axes but the last, here d_model * num_heads for wq (d, H, dh)
     fan_in = cfg.d_model * cfg.num_heads
     assert abs(float(wq.float().std()) * fan_in**0.5 - 1.0) < 0.1
+
+
+def test_stream_core_and_algorithms_are_walked():
+    """The Stream core, the algorithms and the sampler are among the
+    modules the import test walks."""
+    assert {
+        "repro_torch.pytree", "repro_torch.core", "repro_torch.core.graph",
+        "repro_torch.core.stream", "repro_torch.core.future", "repro_torch.core.schedules",
+        "repro_torch.core.chunking", "repro_torch.algorithms.limb",
+        "repro_torch.algorithms.sieve", "repro_torch.algorithms.polynomial",
+        "repro_torch.configs.paper_stream", "repro_torch.serve.prng",
+    } <= set(_modules())
+
+
+def test_algorithm_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.algorithms import limb, polynomial, sieve
+
+    _cuda_absent(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sieve.run_sieve(100)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        polynomial.fateman_poly(2, 16, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        polynomial.from_dict({(1, 0, 0): 3}, 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        limb.from_int(5, 4)
+    p, count = sieve.run_sieve(100, block_size=16, primes_per_cell=2, device="cpu")
+    assert int(count) == 25 and p.device.type == "cpu"
