@@ -20,7 +20,20 @@
    ``kernels="plain"`` on copies of the same cache; one prefill chunk at
    ``pos = 128`` with ``attn_impl="flash"`` and ``"dense"`` on copies of
    the same cache.
-5. Mamba2-1.3B at full width (48 blocks, random weights from a seed),
+5. StreamEngine phase: the same 12 requests through ``StreamEngine``
+   (``attn_impl="flash"``, ``kernels="cuda"``), every round's
+   ``collect`` under ``torch.cuda.set_sync_debug_mode("error")``: a,
+   Lazy with 4 cells and 1 microbatch (B = 8, as the Engine's step),
+   whose tokens must equal the greedy ``"flash"`` Engine run's; b, Lazy
+   with 8 cells and 4 microbatches; c, d, e, the ``FutureEvaluator`` on
+   4 stage streams under gpipe, one_f_one_b and interleaved (2 virtual
+   stages a stage), each identical to b; f, c at temperature 0.9 (seed
+   11), twice, the two identical.  Each run's launch counters show the
+   decode-attention kernel once per decoded item and layer, the emit
+   once per emitted item and flash attention once per prefill call and
+   layer; each round's peak memory stays below the memory before it
+   plus its admission payload and one cell's cache shard.
+6. Mamba2-1.3B at full width (48 blocks, random weights from a seed),
    after OLMo's weights are freed: the same 12 requests through
    ``Engine`` with 256-token prefill chunks; the counters show every
    prefill call through the SSD kernel once per layer, every prefill
@@ -28,16 +41,21 @@
    block's pre-norm, and its gated norm with the gate fused), every
    decode step through the emit kernel.  Then a prefill chunk, a ragged
    tail and a decode step with the kernels against ``kernels="plain"``.
-6. Stream phase: the paper's two algorithms under the port's
+7. Stream phase: the paper's two algorithms under the port's
    ``LazyEvaluator`` on the card, each ``collect`` (and the work around
    it that stays on the card) under ``torch.cuda.set_sync_debug_mode
    ("error")``, so that a cell which syncs with the host fails: the
    sieve at the paper's ``primes`` (limit 20000, 256-wide blocks, 16
-   primes a cell: 2262 primes, against Eratosthenes); Fateman's
+   primes a cell: 2262 primes, against Eratosthenes), then under the
+   ``FutureEvaluator`` on 4 stage streams (168 cells), equal to the
+   Lazy run, with the stages' overlap from events around every unit;
+   Fateman's
    (1+x+y+z)^20 squared (12341 terms) through ``times`` (4 x-chunks, 8
    terms a cell) and ``times_dense``, at 12 limbs with the factor
    100000000001 (``stream_big``, against the exact product) and at 4
-   limbs (``stream``, against the exact product mod 2^52); and a
+   limbs (``stream``, against the exact product mod 2^52), the 4-limb
+   product again under the ``FutureEvaluator`` (224 cells), equal to
+   the Lazy one; and a
    ``defer``-ed computation on the side stream, forced on the current
    stream while other work runs there, against the same computation run
    directly (bitwise).
@@ -945,12 +963,189 @@ def run_ssm_end_to_end(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# StreamEngine phase
+# ---------------------------------------------------------------------------
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch import pytree as P
+
+    return sum(t.numel() * t.element_size() for t in P.leaves(tree) if t.is_cuda)
+
+
+def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overlap=False,
+                      **pipe):
+    """Serve the 12 requests through ``StreamEngine`` (OLMo-1B "flash",
+    ``kernels="cuda"``); every round's ``collect`` under
+    :class:`no_host_sync`.  The launch counters, zeroed just before the
+    run and read just after, must show decode attention once per decoded
+    item and layer, the emit once per emitted item and flash attention
+    once per prefill call and layer; each round's peak memory must stay
+    below the memory allocated before it plus the round's admission
+    payload plus one cell's cache shard (no round copies the cache).
+    With ``overlap`` (a Future run), events around every unit give the
+    stages' overlap over the rounds.  Returns the out_tokens and the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, prefill_chunk=128,
+                       attn_impl="flash", **(serve or {}))
+    pcfg = DecodePipelineConfig(kernels="cuda", **pipe)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
+    eng = StreamEngine(params, cfg, scfg, pcfg, stages=stages, device="cuda")
+    shard = tree_bytes(eng.cell_states) // pcfg.num_cells
+    rounds, prefills, peaks, units = [], [0], [], []
+    eng.evaluator.time_units = overlap
+    collect, prefill = eng._round, eng._prefill
+
+    def round_fn(consts, states, init_items, overlay):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        with no_host_sync():
+            out = collect(consts, states, init_items, overlay)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t)
+        if overlap:
+            units.append(eng.evaluator.unit_times())
+        peak = torch.cuda.max_memory_allocated() - before
+        allowed = tree_bytes(consts.get("adm", {}).get("cache")) + shard
+        peaks.append((peak, allowed))
+        if peak > allowed:
+            fail(f"stream engine {label}: a round's peak memory rose {peak} bytes, allowed "
+                 f"{allowed} (the admission payload and one cell's cache shard)")
+        return out
+
+    def counted_prefill(*args, **kw):
+        prefills[0] += 1
+        return prefill(*args, **kw)
+
+    eng._round, eng._prefill = round_fn, counted_prefill
+    K.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p) for p in prompts]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if not all(r.done and r.status == "ok" for r in reqs):
+        fail(f"stream engine {label}: not every request finished")
+    if any(len(r.out_tokens) != scfg.max_new_tokens for r in reqs):
+        fail(f"stream engine {label}: a request stopped short of its budget")
+    bad = [t for r in reqs for t in r.out_tokens if not 0 <= t < cfg.vocab_size]
+    if bad:
+        fail(f"stream engine {label}: tokens outside [0, {cfg.vocab_size}): {bad[:5]}")
+    items = eng.rounds * pcfg.round_steps * pcfg.microbatches
+    want = dict(NO_LAUNCHES, decode_attention=items * cfg.num_layers, emit_norm_logits=items,
+                attention=prefills[0] * cfg.num_layers)
+    if launches != want:
+        fail(f"stream engine {label}: launch counts {launches}, expected {want} for {items} "
+             f"items and {prefills[0]} prefill calls")
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    worst = max(p / a for p, a in peaks)
+    print(f"stream engine {label} ({smi}): {cfg.name} full width, {tokens} tokens in "
+          f"{wall:.3f} s: {tokens / wall:.1f} tok/s; {eng.rounds} rounds of {pcfg.round_steps} "
+          f"steps x {pcfg.microbatches} microbatches over {pcfg.num_cells} cells, round p50 "
+          f"{statistics.median(rounds) * 1e3:.1f} ms (host clock), total "
+          f"{sum(rounds):.3f} s; no host sync in any collect; peak memory rise per round at "
+          f"most {worst:.3f} of the allowed (payload + one shard of {shard} bytes); launches "
+          f"{launches}", flush=True)
+    if overlap:
+        print_overlap(units, f"stream engine {label[0]}", smi)
+    return [r.out_tokens for r in reqs], launches
+
+
+def run_stream_engine_phase(cfg, params, smi, engine_greedy, engine_hot):
+    """Runs a-f: the StreamEngine under the Lazy and the Future evaluator
+    against the Engine's tokens and each other.  Returns the summed
+    launch counts."""
+    total = dict(NO_LAUNCHES)
+
+    def run(label, **kw):
+        tokens, launches = run_stream_engine(cfg, params, label, smi, **kw)
+        for k, v in launches.items():
+            total[k] += v
+        return tokens
+
+    def agree(x, y):
+        return sum(a == b for u, v in zip(x, y) for a, b in zip(u, v))
+
+    n = sum(len(x) for x in engine_greedy)
+    a = run("a: Lazy, 4 cells, 1 microbatch", num_cells=4, microbatches=1, round_steps=8,
+            admit_per_round=4)
+    if a != engine_greedy:
+        fail(f"stream engine a: tokens differ from the greedy flash Engine's "
+             f"({agree(a, engine_greedy)}/{n} agree)")
+    print(f"stream engine a: tokens identical to the greedy flash Engine's ({n}/{n})", flush=True)
+    pipe = dict(num_cells=8, microbatches=4)
+    b = run("b: Lazy, 8 cells, 4 microbatches", **pipe)
+    print(f"stream engine b vs the greedy flash Engine: {agree(b, engine_greedy)}/{n} tokens "
+          f"agree position by position (B = 2 rows a microbatch against 8)", flush=True)
+    for label, kw in (("c: Future, 4 stages, gpipe", dict(schedule="gpipe", overlap=True)),
+                      ("d: Future, 4 stages, one_f_one_b", dict(schedule="one_f_one_b")),
+                      ("e: Future, 4 stages, interleaved x2",
+                       dict(schedule="interleaved", interleave=2))):
+        got = run(label, stages=4, **pipe, **kw)
+        if got != b:
+            fail(f"stream engine {label[0]}: tokens differ from b's ({agree(got, b)}/{n} agree)")
+        print(f"stream engine {label[0]}: tokens identical to b's", flush=True)
+    hot = [run(f"f{i}: Future, 4 stages, gpipe, temperature 0.9", stages=4, **pipe,
+               serve=dict(temperature=0.9, seed=11)) for i in (1, 2)]
+    if hot[0] != hot[1]:
+        fail("stream engine f: two identical temperature runs gave different tokens")
+    print(f"stream engine f: two runs identical; {agree(hot[0], engine_hot)}/{n} tokens equal to "
+          f"the Engine's temperature-0.9 tokens (the emit samples on the card, the Engine on "
+          f"the host)", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Stream phase
 # ---------------------------------------------------------------------------
 
 BIG_FACTOR = 100000000001  # the paper's stream_big
 FATEMAN_POWER = 20
 FATEMAN_CAPACITY = 1776  # 1771 terms, padded to 4 x-chunks and 222 cells of 8
+FATEMAN_FUTURE_CAPACITY = 1792  # 224 cells of 8: 56 on each of 4 stages
+SIEVE_FUTURE_CELLS = 168  # 4 x 42 cells of 16 primes hold pi(20000) = 2262
+
+
+def print_overlap(runs, label, smi) -> None:
+    """How much of the stages' device time overlapped, from each unit's
+    ``(stage, tick, start_ms, end_ms)`` (one list per collect): the summed
+    busy time of the stages (each stage's units merged), the time at
+    least one stage was busy, and their difference, the time two or more
+    were.  A unit's span runs from its start event to its end event on
+    its stage's stream: on a card that waits on the host it is the host's
+    time to issue the unit."""
+
+    def union(spans):
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    busy = any_busy = span = 0.0
+    units = stages = 0
+    for run in runs:
+        ids = sorted({u[0] for u in run})
+        busy += sum(union([(a, b) for d, _, a, b in run if d == s]) for s in ids)
+        any_busy += union([(a, b) for _, _, a, b in run])
+        span += max(b for *_, b in run) - min(a for _, _, a, _ in run)
+        units, stages = units + len(run), max(stages, len(ids))
+    print(f"{label} overlap ({smi}): {units} units on {stages} stage streams over {span:.1f} "
+          f"ms in {len(runs)} collect(s); stages busy {busy:.1f} ms in sum, some stage busy "
+          f"{any_busy:.1f} ms, two or more at once {busy - any_busy:.1f} ms "
+          f"({(busy - any_busy) / busy:.3f} of the stages' busy time)", flush=True)
 
 
 class no_host_sync:
@@ -991,7 +1186,7 @@ def run_stream_phase(smi: str) -> None:
     from repro_torch.algorithms import polynomial as poly
     from repro_torch.algorithms import sieve
     from repro_torch.configs.paper_stream import CONFIG
-    from repro_torch.core import LazyEvaluator, defer
+    from repro_torch.core import FutureEvaluator, LazyEvaluator, defer
 
     lazy = LazyEvaluator()
     stream = sieve.sieve_stream(CONFIG.primes_limit, block_size=CONFIG.primes_block,
@@ -1005,6 +1200,22 @@ def run_stream_phase(smi: str) -> None:
           f"{CONFIG.primes_block}, {CONFIG.primes_per_cell} primes a cell: {stream.num_items} "
           f"blocks x {stream.num_cells} cells, {int(count)} primes, equal to Eratosthenes, "
           f"in {wall:.3f} s (Lazy, no host sync)", flush=True)
+
+    # The same sieve under the Future evaluator on 4 stage streams: 168
+    # cells (4 x 42) hold the 2262 primes; a unit's start and end events
+    # on its stage stream give the first reading of the stages' overlap.
+    future = FutureEvaluator(4, schedule="gpipe", time_units=True)
+    stream = sieve.sieve_stream(CONFIG.primes_limit, block_size=CONFIG.primes_block,
+                                primes_per_cell=CONFIG.primes_per_cell,
+                                num_cells=SIEVE_FUTURE_CELLS, device="cuda")
+    (fprimes, fcount), fwall = timed_on_card(lambda: sieve.sieve_result(stream.collect(future)))
+    fp = fprimes.cpu().numpy()
+    if int(fcount) != int(count) or not np.array_equal(fp[fp > 0], p[p > 0]):
+        fail(f"sieve under Future: {int(fcount)} primes, not the Lazy run's {int(count)}")
+    print(f"stream sieve Future ({smi}): 4 stages (gpipe), {stream.num_cells} cells: "
+          f"{int(fcount)} primes, equal to Eratosthenes and to the Lazy run, in {fwall:.3f} s "
+          f"(Lazy {wall:.3f} s; no host sync)", flush=True)
+    print_overlap([future.unit_times()], "stream sieve Future", smi)
 
     terms = poly.fateman_terms(FATEMAN_POWER)
     t = time.perf_counter()
@@ -1033,6 +1244,19 @@ def run_stream_phase(smi: str) -> None:
               f"x-chunks, {x.capacity // CONFIG.poly_terms_per_cell} cells of "
               f"{CONFIG.poly_terms_per_cell} terms) {wall:.3f} s, times_dense {dense_wall:.3f} s, "
               f"the two bitwise equal: {bitwise}; host oracle {oracle:.1f} s", flush=True)
+    # 4 limbs under the Future evaluator: 1792 terms of capacity make 224
+    # cells of 8, which split over 4 stages.
+    x = poly.fateman_poly(FATEMAN_POWER, FATEMAN_FUTURE_CAPACITY, CONFIG.poly_limbs_small,
+                          device="cuda")
+    fgot, fwall = timed_on_card(lambda: poly.times(
+        x, x, evaluator=FutureEvaluator(4, schedule="gpipe"),
+        num_x_chunks=CONFIG.poly_x_chunks, terms_per_cell=CONFIG.poly_terms_per_cell))
+    if poly.to_dict(fgot) != poly.to_dict(got):
+        fail("fateman stream under Future differs from the Lazy product")
+    print(f"stream fateman stream Future ({smi}): {CONFIG.poly_limbs_small} limbs, 4 stages "
+          f"(gpipe), {x.capacity // CONFIG.poly_terms_per_cell} cells: equal to the exact "
+          f"product mod 2^{13 * CONFIG.poly_limbs_small} and to the Lazy run, in {fwall:.3f} s "
+          f"(Lazy {wall:.3f} s; no host sync)", flush=True)
 
     # defer: a side-stream computation, forced while the current stream works
     gen = torch.Generator(device="cuda")
@@ -1137,10 +1361,16 @@ def main() -> int:
     # 4. End-to-end checks
     run_decode_end_to_end(cfg, params)
     run_prefill_end_to_end(cfg, params)
+
+    # 5. The StreamEngine: decode rounds under the Lazy and Future evaluators
+    se_launches = run_stream_engine_phase(cfg, params, smi, flash_tokens, hot[0])
+    for name, op in (("decode_attention", "decode_attention"),
+                     ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention")):
+        launches[name] += se_launches[op]
     del params
     torch.cuda.empty_cache()
 
-    # 5. Mamba2-1.3B: engine phase and end-to-end check.  prefill_chunk
+    # 6. Mamba2-1.3B: engine phase and end-to-end check.  prefill_chunk
     # is the config's SSD chunk, so a full prefill chunk is one SSD chunk
     # of the published Q = 256; a ragged tail is prefilled unpadded.
     cfg = get_config("mamba2-1.3b")
@@ -1156,7 +1386,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 6. The paper's Stream programs under the Lazy evaluator on the card
+    # 7. The paper's Stream programs under the Lazy and Future evaluators on the card
     run_stream_phase(smi)
 
     source = {

@@ -86,6 +86,30 @@ class ArchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DecodePipelineConfig:
+    """Stream-shaped serving knobs (see repro_torch.serve.engine.StreamEngine).
+
+    The decode loop runs as a ``Stream.feedback`` program: the
+    transformer's layer groups split into ``num_cells`` pipeline cells,
+    the batch splits into ``microbatches`` in-flight items (the feedback
+    lag), and one round executes ``round_steps`` decode steps with up to
+    ``admit_per_round`` freshly prefilled requests admitted into retired
+    slots inside the round.
+    """
+
+    num_cells: int = 4        # layer-group pipeline cells (must divide groups)
+    microbatches: int = 4     # in-flight request microbatches = feedback lag
+    schedule: str = "gpipe"   # gpipe | one_f_one_b | interleaved
+    interleave: int = 1       # virtual stages per stage (interleaved only)
+    round_steps: int = 8      # decode steps per round
+    admit_per_round: int = 4  # admissions a round may install
+    axis_name: str = "pod"    # the FutureEvaluator's name for its stage axis
+    # kernel dispatch for the decode hot path ("plain" | "cuda" | "auto");
+    # None inherits the model's ArchConfig.kernels knob.
+    kernels: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
     seq_len: int

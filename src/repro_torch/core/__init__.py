@@ -7,18 +7,19 @@ Public API (the ported part of ``repro.core``):
           .collect(evaluator)
     Stream.feedback(init, n, emit) — the unfold combinator: item b
           re-enters as emit(item b - lag)
-  LazyEvaluator, evaluate — the Lazy monad (the pipelined
-    FutureEvaluator is not ported yet)
+  LazyEvaluator, FutureEvaluator, evaluate — the monad substitution:
+    sequential, or pipelined over stages (CUDA streams on a card)
   StreamGraph IR internals (repro_torch.core.graph): lower_chain,
     ChainProgram, run_chain_sequential
   StreamProgram — deprecated single-chain adapter
-  Future, defer, HostFuture — futures on a side CUDA stream
+  Future, defer, HostFuture, ppermute_future — futures on a side CUDA
+    stream, and the pipeline's ring hand-off
   SchedulePlan, build_plan, CombinedPlan, build_combined_plan,
     build_backward_plan — the schedule zoo's tick tables
   chunk_axis, unchunk_axis
 """
 from repro_torch.core.chunking import chunk_axis, unchunk_axis
-from repro_torch.core.future import Future, HostFuture, defer
+from repro_torch.core.future import Future, HostFuture, defer, ppermute_future
 from repro_torch.core.graph import (
     ChainProgram,
     Stream,
@@ -36,6 +37,7 @@ from repro_torch.core.schedules import (
     build_plan,
 )
 from repro_torch.core.stream import (
+    FutureEvaluator,
     LazyEvaluator,
     StreamProgram,
     evaluate,
@@ -46,6 +48,7 @@ __all__ = [
     "ChainProgram",
     "CombinedPlan",
     "Future",
+    "FutureEvaluator",
     "HostFuture",
     "LazyEvaluator",
     "SCHEDULES",
@@ -60,6 +63,7 @@ __all__ = [
     "defer",
     "evaluate",
     "lower_chain",
+    "ppermute_future",
     "run_chain_sequential",
     "unchunk_axis",
 ]

@@ -17,13 +17,19 @@ card really has:
    unless the caller passes ``stream=``.  Where no argument is a CUDA
    tensor (and no stream is given), ``f`` runs at once on the caller's
    stream: on the CPU a future is its value.
-2. **Host futures** (:class:`HostFuture`): a thin wrapper over
+2. **Ring hand-offs** (:func:`ppermute_future`): the pipeline's hop
+   from stage d to stage d+1.  The reference permutes the value over a
+   mesh axis; on one card the value stays where it is, and what crosses
+   is the ordering: an event recorded on the producing stage's stream,
+   which the consuming stage's stream waits on when it forces the
+   future.  Stage d's stream is :func:`stage_stream`, one per (device,
+   stage), made once and reused.
+3. **Host futures** (:class:`HostFuture`): a thin wrapper over
    ``concurrent.futures`` for host work (data prefetch, checkpoint
    writes).
 
-The collective futures of the JAX package (``ppermute_future``,
-``all_gather_future``, ``psum_scatter_future``) need a mesh and are not
-ported yet.
+The collective futures of the JAX package (``all_gather_future``,
+``psum_scatter_future``) need several cards and are not ported yet.
 """
 from __future__ import annotations
 
@@ -49,6 +55,22 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     if index not in _SIDE_STREAMS:
         _SIDE_STREAMS[index] = torch.cuda.Stream(device=index)
     return _SIDE_STREAMS[index]
+
+
+# The pipeline's stage streams: one per (CUDA device, stage), made on
+# first use.
+_STAGE_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
+
+
+def stage_stream(device: torch.device, stage: int) -> torch.cuda.Stream:
+    """The CUDA stream that runs pipeline stage ``stage`` on ``device``."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, stage)
+    if key not in _STAGE_STREAMS:
+        _STAGE_STREAMS[key] = torch.cuda.Stream(device=index)
+    return _STAGE_STREAMS[key]
 
 
 def _cuda_tensors(tree: PyTree) -> list[torch.Tensor]:
@@ -125,6 +147,23 @@ def defer(f: Callable[..., PyTree], *args, stream: torch.cuda.Stream | None = No
         event = torch.cuda.Event()
         event.record(stream)
     return Future(value, False, event, stream)
+
+
+def ppermute_future(x: PyTree, stream: torch.cuda.Stream | None = None) -> Future:
+    """The ring hop of the pipeline, issued now and forced by the next
+    stage (the counterpart of the reference's ``ppermute_future``).
+
+    ``x`` was issued on ``stream`` (the producing stage's); an event is
+    recorded there now.  The consumer forces the future under its own
+    stream, which then waits on the event and marks ``x``'s tensors as
+    used by it, so neither the order nor the caching allocator lets it
+    read memory too early.  Without a stream (the CPU, where stages run
+    in tick order) the future is the value."""
+    if stream is None:
+        return Future(x)
+    event = torch.cuda.Event()
+    event.record(stream)
+    return Future(x, False, event, stream)
 
 
 class HostFuture:

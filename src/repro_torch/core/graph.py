@@ -9,6 +9,14 @@ the host); ``jax.checkpoint`` becomes ``torch.utils.checkpoint`` while
 grad is enabled.  Every data-dependent choice inside a cell stays a
 tensor op, so a chain on a CUDA device runs without syncing the host.
 
+Every executor advances an item through its cells with
+:func:`scan_cells`, which differs from ``lax.scan`` in two ways that
+eager code needs.  A cell may update its state row in place and return
+that same row: the row is then neither written back nor copied (a
+decode cell's state is the KV cache).  And the index of the item in the
+stream is known on the host while a cell runs (:func:`current_item`),
+so a cell can pick a slice of its state without a device offset.
+
 The paper's claim is that *any* algorithm expressible as a Stream
 computation parallelizes by monad substitution.  Real Stream programs
 compose — the paper's own examples are written with ``map``/``filter``/
@@ -70,6 +78,7 @@ stream-ordering discipline of arXiv 2504.02975 — item *b* of a zip is
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Any, Callable
 
@@ -571,11 +580,11 @@ def _const_cell(cell_fn: CellFn, has_const: bool) -> CellFn:
 
 
 def scan_cell(cell_fn: CellFn, mutable: bool):
-    """The one cell-loop scan body every executor uses: carry = the
-    flowing item, xs = ``(const_row, state_row)``, ys = the (possibly
-    frozen) new state row.  A single definition site — Lazy ≡ Future
-    bit-equality rests on the per-cell op sequence being identical, so
-    the wrapper must never fork per executor."""
+    """The one cell body every executor uses: carry = the flowing item,
+    xs = ``(const_row, state_row)``, ys = the (possibly frozen) new state
+    row.  A single definition site — Lazy ≡ Future bit-equality rests on
+    the per-cell op sequence being identical, so the wrapper must never
+    fork per executor; :func:`scan_cells` runs it."""
 
     def cell(flowing, xs):
         cst, state = xs
@@ -585,6 +594,84 @@ def scan_cell(cell_fn: CellFn, mutable: bool):
         return out, new_state
 
     return cell
+
+
+# The stream index of the item a cell call advances (None outside one).
+_ITEM: contextvars.ContextVar[int | None] = contextvars.ContextVar("item", default=None)
+
+
+def current_item() -> int:
+    """The index in the stream of the item the running cell advances, on
+    the host.  :func:`scan_cells` sets it for every cell call, under every
+    executor, so a cell may use it to pick its slice of the state (the
+    decode cell's microbatch) where the reference reads a device value."""
+    item = _ITEM.get()
+    if item is None:
+        raise RuntimeError("current_item() is defined only inside a cell call")
+    return item
+
+
+def scan_cells(cell_fn: CellFn, mutable: bool, flowing: PyTree, const: PyTree,
+               states: PyTree, item: int | None = None) -> tuple[PyTree, PyTree]:
+    """Advance ``flowing`` through the cells whose rows ``states`` stacks
+    (and ``const``, when not None), in order: the cell loop of every
+    executor.  Returns ``(out, new_states)``.
+
+    The rows a cell is handed are views of ``states``.  A cell that
+    updates its row in place and returns that same row costs nothing
+    more: where every cell returned its own row, the leaf of
+    ``new_states`` is the leaf of ``states`` itself -- nothing written
+    back, nothing copied.  A leaf returned as a new tensor is stacked, as
+    ``lax.scan`` stacks its ys.  ``item`` (the stream index of
+    ``flowing``) is what :func:`current_item` returns during each call.
+    """
+    cell = scan_cell(cell_fn, mutable)
+    s_leaves, s_def = P.flatten(states)
+    c_leaves, c_def = P.flatten(const)
+    rows_out: list[list] = [[] for _ in s_leaves]
+    kept = [True] * len(s_leaves)
+    token = _ITEM.set(item)
+    try:
+        for i in range(s_leaves[0].shape[0]):
+            rows = [leaf[i] for leaf in s_leaves]
+            flowing, new = cell(
+                flowing,
+                (P.unflatten(c_def, [leaf[i] for leaf in c_leaves]), P.unflatten(s_def, rows)),
+            )
+            got_leaves = P.leaves(new)
+            if len(got_leaves) != len(rows):
+                raise ValueError(
+                    f"a cell returned a state of {len(got_leaves)} leaves for a "
+                    f"state of {len(rows)}; the state's structure is fixed"
+                )
+            for j, (row, got) in enumerate(zip(rows, got_leaves)):
+                rows_out[j].append(got)
+                kept[j] = kept[j] and got is row
+    finally:
+        _ITEM.reset(token)
+    leaves = [
+        leaf if same else torch.stack([torch.as_tensor(r) for r in rs])
+        for leaf, same, rs in zip(s_leaves, kept, rows_out)
+    ]
+    return flowing, P.unflatten(s_def, leaves)
+
+
+def join_parts(whole: PyTree, parts_in: list, parts_out: list) -> PyTree:
+    """Reassemble a state cut into consecutive slices of its leading axis
+    (``parts_in``, views of ``whole``) from what :func:`scan_cells` made
+    of each (``parts_out``): a leaf that every part kept is ``whole``'s
+    own leaf; any other is concatenated in order."""
+    w_leaves, w_def = P.flatten(whole)
+    ins = [P.leaves(p) for p in parts_in]
+    outs = [P.leaves(p) for p in parts_out]
+    leaves = []
+    for j, leaf in enumerate(w_leaves):
+        if all(o[j] is i[j] for i, o in zip(ins, outs)):
+            leaves.append(leaf)
+        else:
+            got = [o[j] for o in outs]
+            leaves.append(got[0] if len(got) == 1 else torch.cat(got, dim=0))
+    return P.unflatten(w_def, leaves)
 
 
 def _run_segment(node: SegmentNode, items: PyTree) -> tuple[PyTree, PyTree]:
@@ -597,10 +684,12 @@ def _run_segment(node: SegmentNode, items: PyTree) -> tuple[PyTree, PyTree]:
     if node.remat:
         cell_fn = _checkpoint(cell_fn)
     const = node.const_state  # None is an empty pytree: scans thread it
-    cell = scan_cell(cell_fn, node.mutable_state)
+    index = iter(range(leading_axis_size(items)))
 
     def item_step(states, item):
-        out, new_states = scan(cell, item, (const, states))
+        out, new_states = scan_cells(
+            cell_fn, node.mutable_state, item, const, states, item=next(index)
+        )
         return new_states, out
 
     return scan(item_step, node.init_state, items)
@@ -1172,27 +1261,25 @@ def run_chain_sequential(chain: "ChainProgram") -> tuple[tuple, PyTree]:
         zip([0] + boundaries, boundaries + [chain.num_cells])
     ) if chain.num_cells else []
 
+    index = iter(range(n))
+
     def run_item(states, flow, src_items):
+        b = next(index)
         for i in entry:
             flow = chain.injections[i].combine(flow, src_items[str(i)])
-        parts = []
-        for a, b in spans:
+        parts_in, parts_out = [], []
+        for lo, hi in spans:
             for i in interior:
-                if chain.injections[i].cell_index == a:
+                if chain.injections[i].cell_index == lo:
                     flow = chain.injections[i].combine(flow, src_items[str(i)])
-            sub = P.tree_map(lambda l: l[a:b], states)
-            sub_const = P.tree_map(lambda l: l[a:b], const_state)
-            flow, new_sub = scan(
-                scan_cell(cell_fn, mutable), flow, (sub_const, sub)
-            )
-            parts.append(new_sub)
-        if not parts:
+            sub = P.tree_map(lambda l: l[lo:hi], states)
+            sub_const = P.tree_map(lambda l: l[lo:hi], const_state)
+            flow, new_sub = scan_cells(cell_fn, mutable, flow, sub_const, sub, item=b)
+            parts_in.append(sub)
+            parts_out.append(new_sub)
+        if not parts_out:
             return states, flow
-        if len(parts) == 1:
-            return parts[0], flow
-        return P.tree_map(
-            lambda *ps: torch.cat(ps, dim=0), *parts
-        ), flow
+        return join_parts(states, parts_in, parts_out), flow
 
     src_xs = {
         str(i): feeds[i] for i in entry + interior

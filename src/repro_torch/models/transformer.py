@@ -14,6 +14,8 @@ Step kinds:
   * ``forward``      -- logits for full sequences.
   * ``prefill_step`` -- one prompt chunk written into the KV cache.
   * ``decode_step``  -- one token per sequence against the KV cache.
+  * ``make_decode_cell`` / ``make_decode_emit`` -- decode as Stream cells
+    (layer groups) and the feedback emit, for ``serve.engine.StreamEngine``.
 
 Unlike the JAX package's functional ``.at[].set`` updates, the cache
 is updated **in place**: ``prefill_step`` writes the chunk's K/V rows and
@@ -29,8 +31,10 @@ from typing import Any
 
 import torch
 
+from repro_torch import pytree as P
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import graph as G
 from repro_torch.kernels import get_impl, resolve_mode
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -236,13 +240,11 @@ def _self_attn(
                 causal_skip=causal_skip)
     if cache is None:
         return L.attn_out(params, L.attention(q, k, v, causal=True, **impl)), (k, v)
-    bsz, s = x.shape[:2]
+    s = x.shape[1]
     ck, cv = cache["k"], cache["v"]
     if s == 1:
         rows_k = k[:, 0].to(ck.dtype)
         rows_v = v[:, 0].to(cv.dtype)
-        idx = torch.arange(bsz, device=x.device)
-        pos = cache_pos.long()
         if kernels == "cuda":
             # einsum may hand back permuted views; the kernel takes
             # contiguous operands (a no-op where they already are)
@@ -250,11 +252,9 @@ def _self_attn(
                 q.contiguous(), rows_k.contiguous(), rows_v.contiguous(),
                 ck, cv, pos=cache_pos, kv_len=kv_len,
             )
-            ck[idx, pos] = rows_k
-            cv[idx, pos] = rows_v
+            scatter_decode_rows(cache, rows_k, rows_v, cache_pos)
             return L.attn_out(params, ctx), (k, v)
-        ck[idx, pos] = rows_k
-        cv[idx, pos] = rows_v
+        scatter_decode_rows(cache, rows_k, rows_v, cache_pos)
         causal, q_offset = False, 0
     else:
         if cache_pos + s > ck.shape[1]:
@@ -269,6 +269,20 @@ def _self_attn(
         q, ck, cv, causal=causal, q_offset=q_offset, kv_len=kv_len, **impl,
     )
     return L.attn_out(params, ctx), (k, v)
+
+
+def scatter_decode_rows(cache, rows_k, rows_v, pos):
+    """One decode step's cache writes, in place: sequence b's new K/V row
+    ``(KV, dh)`` lands at ``[b, pos[b]]`` of the block's cache
+    ``(B, S, KV, dh)``, which may be a view of a microbatch's rows of the
+    whole cache (a decode cell's): the write lands in the cache.  The
+    bytes written are the rows.  The reference's ``scatter_decode_rows``
+    scatters the rows a functional step returns; here the step writes
+    them where they belong."""
+    idx = torch.arange(rows_k.shape[0], device=rows_k.device)
+    pos = pos.long()
+    cache["k"][idx, pos] = rows_k
+    cache["v"][idx, pos] = rows_v
 
 
 def _apply_group(
@@ -518,3 +532,189 @@ def prefill_step(
     x = _norm(cfg, params.get("final_norm"), x[:, at : at + 1, :])  # row-wise
     lg = L.logits(params.get("head"), params["embed"], x, cfg)
     return lg[:, 0, :], caches
+
+
+# ---------------------------------------------------------------------------
+# Decode as Stream cells (pipelined serving)
+# ---------------------------------------------------------------------------
+#
+# The decode loop is a stream: cells = contiguous layer groups (each
+# owning its params as read-only const state and its KV/SSD cache shard
+# as mutable state), items = in-flight request microbatches.  The
+# flowing item is a fixed-structure dict
+#
+#     {"x": (Bm, 1, d) hidden state (embed(tok) on entry),
+#      "tok", "pos", "active", "uid", "ngen", "budget": (Bm,)}
+#
+# and `make_decode_emit` closes the loop (final norm -> logits -> sample
+# -> re-embed), so the emitted item is the next step's input.  The
+# reference's item also carries its microbatch and round step as device
+# scalars ("mb", "step"); here both follow from the item's index b in
+# the round's stream, known on the host while a cell runs
+# (`graph.current_item`): item b < M is microbatch b at step 0, and the
+# fed-back item b keeps the microbatch of item b - M one step later, so
+# mb = b % M and step = b // M.  A cell then reads its microbatch's cache
+# rows as a contiguous view (no gather, no host sync) and installs an
+# admission with a host `if` and an in-place copy into the slot's column.
+#
+# The cache is only ever written in place: attention writes one row per
+# sequence and layer (`scatter_decode_rows`), a Mamba block its
+# sequences' conv and SSD state, an admission its slot's column; the cell
+# returns the state row it was handed, so the cell scan writes nothing
+# back and copies nothing (`graph.scan_cells`).
+
+
+def _split_cells(tree, num_cells: int):
+    def split(leaf):
+        groups = leaf.shape[0]
+        if groups % num_cells != 0:
+            raise ValueError(f"{groups} layer groups not divisible by num_cells={num_cells}")
+        return leaf.view((num_cells, groups // num_cells) + tuple(leaf.shape[1:]))
+
+    return P.tree_map(split, tree)
+
+
+def split_decode_cells(params, caches, num_cells: int):
+    """Views of params and caches as ``num_cells`` contiguous layer-group
+    cells: leaves ``(groups, ...)`` become ``(num_cells, groups /
+    num_cells, ...)``, with nothing copied.
+
+    Returns ``(const_state, state)``, the Stream's read-only / mutable
+    split: ``{"blocks": ...}`` -- each cell's layer-group params, which
+    the engine joins with a round's admission payload
+    (``const_state["adm"]``) -- and ``{"cache": ...}``, each cell's
+    KV/SSD cache shard, the only thing the cells write.
+    """
+    return (
+        {"blocks": _split_cells(params["blocks"], num_cells)},
+        {"cache": _split_cells(caches, num_cells)},
+    )
+
+
+def merge_decode_caches(cell_states) -> PyTree:
+    """The batch cache of :func:`split_decode_cells`'s cache shards: a
+    view again."""
+    return P.tree_map(lambda l: l.view((-1,) + tuple(l.shape[2:])), cell_states["cache"])
+
+
+def stack_admission_payload(singles, slots, steps, mbs, num_cells: int) -> PyTree:
+    """Pack prefilled single-request caches into per-cell admission state.
+
+    ``singles``: A caches from ``init_cache(cfg, 1, max_len)`` after
+    prefill (leaves ``(groups, 1, ...)``).  Returns a pytree with leading
+    axis ``num_cells``: per cell, the slice of every admission's cache it
+    owns (``"cache"``, leaves ``(num_cells, A, groups / num_cells, ...)``
+    on the cache's device), and the slot, round step and microbatch each
+    admission is installed at (int32 ``(num_cells, A)`` on the host: a
+    cell compares them with its item's index without a device read).
+    """
+    a_ = len(singles)
+    meta = {
+        name: torch.tensor(v, dtype=torch.int32).expand(num_cells, a_)
+        for name, v in (("slot", slots), ("step", steps), ("mb", mbs))
+    }
+    if not a_:
+        return meta
+
+    def cellify(*leaves):
+        stacked = torch.stack([leaf[:, 0] for leaf in leaves])  # (A, groups, ...)
+        return stacked.unflatten(1, (num_cells, -1)).transpose(0, 1)
+
+    return {"cache": P.tree_map(cellify, *singles), **meta}
+
+
+def make_decode_cell(
+    cfg: ArchConfig,
+    *,
+    microbatch: int,
+    microbatches: int,
+    attn_impl: str = "dense",
+    kv_chunk: int = 1024,
+    kernels: str = "plain",
+):
+    """One pipeline cell of the decode stream.
+
+    ``cell_fn(const, state, item) -> (state, item')``: ``const`` holds the
+    cell's layer-group params (``const["blocks"]``) and, in a round that
+    admits requests, the cell's row of :func:`stack_admission_payload`
+    (``const["adm"]``); ``state`` holds the cell's cache shard, leaves
+    ``(groups a cell, B, ...)``.  For the item of stream index b (the
+    section comment says why it is microbatch ``b % microbatches`` at
+    round step ``b // microbatches``) the cell first installs the
+    admissions planned at that step and microbatch -- the slot's column
+    of the shard, copied in place -- then runs its layer groups on the
+    microbatch's ``microbatch`` cache rows, a view of the shard.
+    ``kernels`` is the resolved mode: ``"cuda"`` reads attention through
+    the fused decode-attention kernel.
+    """
+    plans = block_plans(cfg)
+    _check_ported(cfg, plans)
+
+    def cell_fn(const, state, item):
+        b = G.current_item()
+        mb, step = b % microbatches, b // microbatches
+        cache = state["cache"]
+        adm = const.get("adm")
+        if adm is not None:
+            for a in range(adm["slot"].shape[0]):
+                if int(adm["step"][a]) == step and int(adm["mb"][a]) == mb:
+                    slot = int(adm["slot"][a])
+                    for full, new in zip(P.leaves(cache), P.leaves(adm["cache"])):
+                        full[:, slot].copy_(new[a])
+        lo = mb * microbatch
+        rows = P.tree_map(lambda l: l[:, lo : lo + microbatch], cache)
+        lengths = item["pos"]
+        if lengths.data_ptr() % 16:
+            # a row of the round's first items, at an offset the
+            # decode-attention kernel does not take: its own copy
+            lengths = lengths.clone()
+        positions, kv_len = lengths[:, None], (lengths + 1)[:, None]
+        x = item["x"]
+        for g in range(_num_groups(const)):
+            x, _ = _apply_group(
+                _group(const["blocks"], g), x, cfg, plans,
+                positions=positions, group_cache=_group(rows, g),
+                cache_pos=lengths, kv_len=kv_len, attn_impl=attn_impl,
+                q_chunk=1, kv_chunk=kv_chunk, kernels=kernels,
+            )
+        return state, {**item, "x": x}
+
+    return cell_fn
+
+
+def make_decode_emit(
+    params,
+    cfg: ArchConfig,
+    *,
+    sample_fn,
+    eos_id: int,
+    max_len: int,
+    kernels: str = "plain",
+):
+    """The feedback emit closing the decode loop, all on the item's
+    device: final norm -> logits (the fused emit kernel under
+    ``kernels="cuda"``) -> ``sample_fn(logits, uid, ngen)`` -> re-embed.
+    Retirement mirrors the sequential engine: a slot freezes (pos, tok
+    and ngen stop) once it has generated its budget, hit EOS, or reached
+    the ``max_len`` cache boundary; frozen slots keep flowing but never
+    advance, so no cache row at index >= max_len is written."""
+    table = params["embed"]["embedding"]
+
+    def emit(item):
+        lg = _emit_logits(params, cfg, item["x"], kernels)
+        sampled = sample_fn(lg, item["uid"], item["ngen"])
+        act = item["active"]
+        tok = torch.where(act, sampled, item["tok"])
+        pos = torch.where(act, item["pos"] + 1, item["pos"])
+        ngen = torch.where(act, item["ngen"] + 1, item["ngen"])
+        done = (ngen >= item["budget"]) | (tok == eos_id) | (pos + 1 >= max_len)
+        return {
+            **item,
+            "x": L.embed_lookup(table, tok)[:, None, :],
+            "tok": tok,
+            "pos": pos,
+            "ngen": ngen,
+            "active": act & ~done,
+        }
+
+    return emit

@@ -1,8 +1,27 @@
-"""Serving engine: continuous batching over a slotted KV cache.
+"""Serving engines: continuous batching over a slotted KV cache.
 
-PyTorch port of the sequential ``Engine`` of ``repro.serve.engine``: one
-``decode_step`` per decode step over all ``max_batch`` slots; admission,
-sampling and retirement run in host Python between steps.
+PyTorch port of ``repro.serve.engine``.  Two engines share one
+continuous-batching contract (``submit`` / ``step`` /
+``run_until_drained``) and emit the same greedy tokens:
+
+``Engine`` -- the layer-sequential reference: one ``decode_step`` per
+decode step over all ``max_batch`` slots; admission, sampling and
+retirement run in host Python between steps.
+
+``StreamEngine`` -- decode as a Stream program.  The layer groups split
+into ``num_cells`` cells (params ride the chain's read-only
+``const_state``; each cell's cache shard is its mutable state, written
+in place), the batch splits into ``microbatches`` in-flight items, and
+one ``Stream.feedback`` round runs ``round_steps`` decode steps: the
+emit (final norm, logits, sampling on the device, re-embed) feeds each
+item's token back in with lag ``microbatches``, and an entry-zip
+overlay plus per-cell admission payloads install freshly prefilled
+requests into retired slots inside the round.  ``stages=None`` runs the
+round under ``LazyEvaluator`` (stream-shaped, layer-sequential: the
+pipelining ablation); ``stages=D`` under ``FutureEvaluator`` over D
+stages, each issuing on a CUDA stream of its own on a card.
+
+Common to both:
 
   * ``max_batch`` cache slots; per-slot length/active state on host.
   * admit: a new request prefills in chunks (B=1, ragged tail padded to
@@ -20,20 +39,25 @@ sampling and retirement run in host Python between steps.
     prefill's attention core; ``"flash"`` runs the flash-attention kernel
     on a CUDA device.  Decode attention runs the fused decode-attention
     kernel there whatever the name.
-  * sampling, on the host from fp32 logits: greedy argmax, or at
-    ``temperature > 0`` the reference's Gumbel-max draw under the key
+  * sampling from fp32 logits: greedy argmax, or at ``temperature > 0``
+    the reference's Gumbel-max draw under the key
     ``fold_in(fold_in(PRNGKey(seed), uid), ngen)`` (:mod:`.prng`, the
-    ``jax.random`` generator rebuilt in numpy), so a request's tokens
-    depend on (seed, uid, token index) only.
+    ``jax.random`` generator rebuilt in numpy and on tensors), so a
+    request's tokens depend on (seed, uid, token index) only.  The
+    ``Engine`` and every prefill draw on the host (:func:`sample_token`),
+    the ``StreamEngine``'s emit on the device (:func:`sample_token_t`).
 
 Request lifecycle: bounded admission (``max_queue`` ->
 :class:`QueueFullError`), per-request deadlines, ``cancel(uid)``, and
 ``run_until_drained`` raising :class:`DrainTimeoutError` instead of
-truncating silently.
+truncating silently.  The reference's degraded mode (a fused-kernel
+failure falling back to the plain path) has no counterpart: a kernel
+that fails to build or launch raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import time
 from collections import deque
 from functools import partial
@@ -42,8 +66,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import pytree as P
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DecodePipelineConfig
+from repro_torch.core import FutureEvaluator, LazyEvaluator, Stream
+from repro_torch.kernels import resolve_mode
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve import prng
@@ -111,6 +138,21 @@ def sample_token(logits, temperature: float, seed: int, uid, ngen):
     if key.shape[:-1] != logits.shape[:-1]:
         raise ValueError(f"one (uid, ngen) per row: keys {key.shape[:-1]}, logits {logits.shape}")
     return prng.categorical(key, logits / np.float32(temperature))
+
+
+def sample_token_t(logits: torch.Tensor, temperature: float, seed: int,
+                   uid: torch.Tensor, ngen: torch.Tensor) -> torch.Tensor:
+    """:func:`sample_token` on a batch of fp32 logits ``(B, V)`` on their
+    device: int32 ``(B,)``, with no host sync.  Greedy takes the first
+    maximum (``torch.argmax``, as ``jnp.argmax``); at a temperature each
+    row draws under its own ``(uid, ngen)`` key, dividing by the
+    temperature as a tensor (a true division, as numpy's)."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if logits.dtype != torch.float32:
+        raise TypeError(f"temperature sampling takes fp32 logits, got {logits.dtype}")
+    t = torch.full((), temperature, dtype=torch.float32, device=logits.device)
+    return prng.categorical_t(prng.request_key_t(seed, uid, ngen), logits / t)
 
 
 class _EngineBase:
@@ -370,4 +412,309 @@ class Engine(_EngineBase):
                 req.done = True
                 finished.append(req)
                 self.active[i] = None
+        return finished
+
+
+# ---------------------------------------------------------------------------
+# StreamEngine: decode as a Stream.feedback program
+# ---------------------------------------------------------------------------
+
+
+def decode_copy_bytes_per_tick(
+    cfg: ArchConfig,
+    microbatch: int,
+    num_cells: int,
+    *,
+    row_scatter: bool = True,
+    max_len: int = 1024,
+) -> int:
+    """Bytes one steady decode tick writes into its cell's cache shard.
+
+    The decode cells write one cache row per sequence and layer, in place
+    (``models.transformer.scatter_decode_rows``), so a tick writes the
+    ``max_len=1`` cache layout: its bytes over ``num_cells``.
+    ``row_scatter=False`` models the slab scheme the reference replaced
+    (the microbatch's whole cache block sliced out and written back): the
+    layout at full ``max_len``, a ``max_len`` times larger term.
+    """
+    layout = T.cache_layout(cfg, microbatch, 1 if row_scatter else max_len)
+    total = sum(leaf.numel() * leaf.element_size() for leaf in P.leaves(layout))
+    return total // num_cells
+
+
+_OVERLAY_KEYS = ("x", "tok", "pos", "active", "uid", "ngen", "budget")
+
+
+def _overlay_combine(flow, src):
+    """Entry-zip admission overlay: where ``gate`` is set, the slot's row
+    is replaced wholesale by the admitted request's state (its
+    prefill-sampled token, re-embedded hidden state, prompt length and
+    budget) -- the retired occupant simply stops re-entering."""
+    gate = src["gate"]
+    out = dict(flow)
+    for k in _OVERLAY_KEYS:
+        g = gate.reshape(gate.shape + (1,) * (flow[k].dim() - 1))
+        out[k] = torch.where(g, src[k], flow[k])
+    return out
+
+
+class StreamEngine(_EngineBase):
+    """Decode as a pipelined ``Stream.feedback`` program.
+
+    One round = ``round_steps`` decode steps of all ``microbatches``
+    in-flight items: items flow through ``num_cells`` layer-group cells,
+    the emit (final norm, logits, sampling, re-embed, all on the device)
+    feeds each item's token back in with lag ``microbatches``, and the
+    admissions planned at round start (free slots, and slots whose
+    occupant provably exhausts its budget mid-round) are installed by the
+    cells themselves at the first item that carries them.
+
+    ``stages=None`` runs the round under ``LazyEvaluator`` (the
+    reference's ``mesh=None``); ``stages=D`` under ``FutureEvaluator``
+    over D stages with ``pcfg``'s schedule, interleave and axis name, on
+    CUDA streams of ``device``.  Runs on ``device`` (CUDA unless the
+    caller passes ``device="cpu"``), where ``params`` must lie.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: ArchConfig,
+        scfg: ServeConfig,
+        pcfg: DecodePipelineConfig | None = None,
+        stages: int | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        super().__init__(params, cfg, scfg, device)
+        pcfg = pcfg or DecodePipelineConfig()
+        self.pcfg = pcfg
+        if scfg.max_batch % pcfg.microbatches != 0:
+            raise ValueError(
+                f"max_batch={scfg.max_batch} not divisible by "
+                f"microbatches={pcfg.microbatches}"
+            )
+        if pcfg.admit_per_round < 1:
+            raise ValueError(
+                "admit_per_round must be >= 1 (with 0 no request could "
+                "ever enter a slot and run_until_drained would spin)"
+            )
+        self.mb_size = scfg.max_batch // pcfg.microbatches
+        groups = cfg.num_layers // T.effective_period(cfg)
+        if groups % pcfg.num_cells != 0:
+            raise ValueError(
+                f"{groups} layer groups not divisible by num_cells={pcfg.num_cells}"
+            )
+        if stages is None:
+            self.evaluator = LazyEvaluator()
+        else:
+            self.evaluator = FutureEvaluator(
+                stages, pcfg.axis_name, schedule=pcfg.schedule,
+                interleave=pcfg.interleave, device=self.device,
+            )
+        # Read-only/mutable split, as views: layer params ride the
+        # Stream's const_state, each cell's cache shard is its state.
+        self.cell_consts, self.cell_states = T.split_decode_cells(
+            params, T.init_cache(cfg, scfg.max_batch, scfg.max_len, self.device),
+            pcfg.num_cells,
+        )
+        # The pipeline knob overrides the model's, resolved once so that
+        # cells and emit agree.
+        self.kernels = resolve_mode(
+            cfg.kernels if pcfg.kernels is None else pcfg.kernels, self.device
+        )
+        self._cell_fn = T.make_decode_cell(
+            cfg, microbatch=self.mb_size, microbatches=pcfg.microbatches,
+            attn_impl=scfg.attn_impl, kernels=self.kernels,
+        )
+        self._emit = T.make_decode_emit(
+            params, cfg,
+            sample_fn=lambda lg, uid, ngen: sample_token_t(
+                lg, scfg.temperature, scfg.seed, uid, ngen
+            ),
+            eos_id=scfg.eos_id, max_len=scfg.max_len, kernels=self.kernels,
+        )
+        self._by_uid: dict[int, Request] = {}
+        self.rounds = 0  # rounds run so far
+
+    @property
+    def cache(self) -> PyTree:
+        """The batch cache: a view of the per-cell shards."""
+        return T.merge_decode_caches(self.cell_states)
+
+    def _round(self, cell_consts, cell_states, init_items, overlay):
+        """One round's Stream program, collected under the engine's
+        evaluator: ``(new cell states, the round's emitted items)``."""
+        t_, m_ = self.pcfg.round_steps, self.pcfg.microbatches
+        program = (
+            Stream.feedback(init_items, t_ * m_, self._emit)
+            .zip(Stream.source(overlay), _overlay_combine)
+            .through(self._cell_fn, cell_states, const_state=cell_consts)
+        )
+        res = program.collect(self.evaluator)
+        return res.states[0], res.items
+
+    # -- round construction --------------------------------------------------
+
+    def _plan_admissions(self, t_: int):
+        """(slot, step, request, single cache) admissions for the coming
+        round, and the requests that finished at their prefill.
+
+        Free slots admit at step 0.  A slot whose occupant provably
+        exhausts its budget at round-local step k-1 is free at step k
+        (EOS may free it earlier -- admitting at k is then merely late,
+        never wrong), so queued requests keep entering mid-flight.
+        Requests that retire on their prefill-sampled token never occupy
+        a slot.
+        """
+        a_max = self.pcfg.admit_per_round
+        finished: list[Request] = []
+        admissions: list[tuple[int, int, Request, PyTree]] = []
+        events: list[tuple[int, int]] = []  # (step, slot), earliest first
+        for slot, req in enumerate(self.active):
+            if req is None:
+                events.append((0, slot))
+            else:
+                k = req.max_new_tokens - len(req.out_tokens)
+                if k < t_:
+                    events.append((k, slot))
+        heapq.heapify(events)
+        while self.queue and len(admissions) < a_max and events:
+            step, slot = heapq.heappop(events)
+            while self.queue:
+                req = self.queue.popleft()
+                single, done = self._prefill_single(req)
+                self._by_uid[req.uid] = req
+                if done:
+                    req.done = True
+                    finished.append(req)
+                    continue  # slot still free: try the next request
+                admissions.append((slot, step, req, single))
+                # This request may itself retire mid-round: its slot
+                # frees again once its remaining budget is spent.
+                k2 = step + (req.max_new_tokens - len(req.out_tokens))
+                if k2 < t_:
+                    heapq.heappush(events, (k2, slot))
+                break
+        return admissions, finished
+
+    def _build_round_inputs(self, admissions):
+        """The round's first ``microbatches`` items, its admission overlay
+        (one item per stream item) and its admission payload, on the
+        engine's device; the hidden states are embedded there."""
+        scfg, pcfg = self.scfg, self.pcfg
+        b_, m_, t_, bm = scfg.max_batch, pcfg.microbatches, pcfg.round_steps, self.mb_size
+        dev, table = self.device, self.params["embed"]["embedding"]
+        tok = np.zeros(b_, np.int32)
+        active = np.zeros(b_, bool)
+        uid = np.zeros(b_, np.int32)
+        ngen = np.zeros(b_, np.int32)
+        budget = np.ones(b_, np.int32)
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            tok[slot] = req.out_tokens[-1]
+            active[slot] = True
+            uid[slot] = req.uid
+            ngen[slot] = len(req.out_tokens)
+            budget[slot] = req.max_new_tokens
+
+        def rows(a):
+            return torch.as_tensor(a.reshape(m_, bm), device=dev)
+
+        init_items = {
+            "x": L.embed_lookup(table, rows(tok))[:, :, None, :],
+            "tok": rows(tok), "pos": rows(self.lengths), "active": rows(active),
+            "uid": rows(uid), "ngen": rows(ngen), "budget": rows(budget),
+        }
+
+        n = t_ * m_
+        ov = {
+            "gate": np.zeros((n, bm), bool),
+            "tok": np.zeros((n, bm), np.int32),
+            "pos": np.zeros((n, bm), np.int32),
+            "active": np.zeros((n, bm), bool),
+            "uid": np.zeros((n, bm), np.int32),
+            "ngen": np.zeros((n, bm), np.int32),
+            "budget": np.ones((n, bm), np.int32),
+        }
+        singles, slots, steps, mbs = [], [], [], []
+        for slot, step, req, single in admissions:
+            mb, row = divmod(slot, bm)
+            b = step * m_ + mb
+            ov["gate"][b, row] = True
+            ov["tok"][b, row] = req.out_tokens[-1]
+            ov["pos"][b, row] = len(req.prompt)
+            ov["active"][b, row] = True
+            ov["uid"][b, row] = req.uid
+            ov["ngen"][b, row] = len(req.out_tokens)
+            ov["budget"][b, row] = req.max_new_tokens
+            singles.append(single)
+            slots.append(slot)
+            steps.append(step)
+            mbs.append(mb)
+        adm = T.stack_admission_payload(singles, slots, steps, mbs, pcfg.num_cells)
+        overlay = {k: torch.as_tensor(v, device=dev) for k, v in ov.items()}
+        # Embed only the gated rows (at most admit_per_round of them);
+        # every other row of the overlay is a zero the combine discards.
+        x = torch.zeros((n, bm, 1, table.shape[1]), dtype=table.dtype, device=dev)
+        gated = torch.as_tensor(np.argwhere(ov["gate"]), device=dev)
+        if len(gated):
+            x[gated[:, 0], gated[:, 1], 0] = L.embed_lookup(
+                table, overlay["tok"][gated[:, 0], gated[:, 1]]
+            )
+        overlay["x"] = x
+        return init_items, overlay, adm
+
+    # -- the round -----------------------------------------------------------
+
+    def step(self) -> list[Request]:
+        """One round of ``round_steps`` decode steps."""
+        t_, m_ = self.pcfg.round_steps, self.pcfg.microbatches
+        bm = self.mb_size
+        finished = self._expire_deadlines()
+        admissions, planned = self._plan_admissions(t_)
+        finished.extend(planned)
+        for req in self.active:
+            if req is not None:
+                self._by_uid[req.uid] = req
+        if not admissions and all(r is None for r in self.active):
+            return finished
+        init_items, overlay, adm = self._build_round_inputs(admissions)
+        # The admission payload is read-only within a round: it rides
+        # const_state beside the params.
+        self.cell_states, collected = self._round(
+            {**self.cell_consts, "adm": adm}, self.cell_states, init_items, overlay
+        )
+        self.rounds += 1
+        col = {k: collected[k].cpu().numpy() for k in ("tok", "pos", "active", "uid", "ngen")}
+        # Walk emitted items in stream order; a row's token is real when
+        # its ngen is one past what the host has -- frozen (retired) rows
+        # repeat their ngen and are skipped, exactly mirroring the emit.
+        for b in range(t_ * m_):
+            for r in range(bm):
+                req = self._by_uid.get(int(col["uid"][b, r]))
+                if req is None or req.done:
+                    continue
+                g = int(col["ngen"][b, r])
+                if g != len(req.out_tokens) + 1:
+                    continue
+                tok = int(col["tok"][b, r])
+                req.out_tokens.append(tok)
+                if (
+                    g >= req.max_new_tokens
+                    or tok == self.scfg.eos_id
+                    or int(col["pos"][b, r]) + 1 >= self.scfg.max_len
+                ):
+                    req.done = True
+                    finished.append(req)
+        # Host slot state syncs from each microbatch's final item.
+        for mb in range(m_):
+            b = (t_ - 1) * m_ + mb
+            for r in range(bm):
+                slot = mb * bm + r
+                self.lengths[slot] = int(col["pos"][b, r])
+                req = self._by_uid.get(int(col["uid"][b, r]))
+                live = bool(col["active"][b, r]) and req is not None and not req.done
+                self.active[slot] = req if live else None
+        self._by_uid = {r.uid: r for r in self.active if r is not None}
         return finished

@@ -25,10 +25,22 @@ rebuilds that draw bit for bit from the same integer operations:
 
 ``key`` arguments are ``(..., 2)`` uint32 arrays; a batch of keys draws
 one row each.
+
+The functions with a ``_t`` suffix are the same draw on tensors, for a
+sampler that runs on the card inside a decode round (the
+``StreamEngine``'s emit): each 32-bit word is an int64 tensor masked to
+32 bits after every operation that may overflow, so the bits equal the
+numpy versions'.  They create no tensor from host data, so they never
+sync the host with the card.  ``gumbel_t`` takes its logs in fp64 and
+rounds them to fp32, as ``_log`` does: the card's fp64 log is not
+correctly rounded either, so a Gumbel value may differ from the host's in
+its last fp32 ulp where the fp64 value lies next to a rounding boundary
+(the same two-ulp bound holds).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _U32 = np.uint32
 _MASK = 0xFFFFFFFF
@@ -116,3 +128,81 @@ def request_key(seed: int, uid, ngen) -> np.ndarray:
     ``fold_in(fold_in(PRNGKey(seed), uid), ngen)``; ``uid`` and ``ngen``
     may be arrays (one key per element)."""
     return fold_in(fold_in(PRNGKey(seed), uid), ngen)
+
+
+# ---------------------------------------------------------------------------
+# The same draw on tensors
+# ---------------------------------------------------------------------------
+
+
+def _words(key):
+    """The two 32-bit words of a key: a ``(..., 2)`` int64 tensor, or a
+    pair of ints (``PRNGKey``'s, with no tensor made from host data)."""
+    if isinstance(key, torch.Tensor):
+        return key[..., 0], key[..., 1]
+    return int(key[0]) & _MASK, int(key[1]) & _MASK
+
+
+def threefry2x32_t(key, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on int64 tensors holding 32-bit words; ``key``
+    is a ``(..., 2)`` int64 tensor or a pair of ints, and the operands
+    broadcast."""
+    k0, k1 = _words(key)
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def fold_in_t(key, data: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_in` of integer tensor ``data`` (one key each): a
+    ``(*data.shape, 2)`` int64 tensor."""
+    data = data.to(torch.int64) & _MASK
+    y0, y1 = threefry2x32_t(key, torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def random_bits_t(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """:func:`random_bits` for a ``(..., 2)`` key tensor: 32-bit words,
+    int64, shape ``(..., *shape)``."""
+    idx = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
+                       device=key.device).reshape(shape)
+    k = key.reshape(key.shape[:-1] + (1,) * len(shape) + (2,))
+    b0, b1 = threefry2x32_t(k, idx >> 32, idx & _MASK)
+    return b0 ^ b1
+
+
+def uniform_t(key: torch.Tensor, shape: tuple[int, ...], minval=0.0, maxval=1.0) -> torch.Tensor:
+    """:func:`uniform` on tensors: fp32."""
+    bits = random_bits_t(key, shape)
+    floats = ((bits >> (32 - 23)) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return (floats * float(hi - lo) + float(lo)).clamp_min(float(lo))
+
+
+def gumbel_t(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """:func:`gumbel` on tensors: fp32, each log taken in fp64."""
+    u = uniform_t(key, shape, minval=np.finfo(np.float32).tiny, maxval=1.0)
+    return -_log_t(-_log_t(u))
+
+
+def _log_t(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x.to(torch.float64)).to(torch.float32)
+
+
+def categorical_t(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """:func:`categorical` on tensors: int32 draws over the last axis of
+    fp32 ``logits``, one key (``(..., 2)``) per row."""
+    noise = gumbel_t(key, tuple(logits.shape[key.dim() - 1:]))
+    return torch.argmax(noise + logits, dim=-1).to(torch.int32)
+
+
+def request_key_t(seed: int, uid: torch.Tensor, ngen: torch.Tensor) -> torch.Tensor:
+    """:func:`request_key` on tensors: ``(*uid.shape, 2)`` int64."""
+    return fold_in_t(fold_in_t((0, seed), uid), ngen)

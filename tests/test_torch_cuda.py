@@ -812,3 +812,175 @@ def test_sample_token_on_card_logits_equals_cpu_draw():
     assert drawn.tolist() == [int(sample_token(rows[i], 0.9, 11, int(u), int(n)))
                               for i, (u, n) in enumerate(zip(uids, ngens))]
     assert K.LAUNCHES["emit_norm_logits"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The FutureEvaluator on stage streams, and the StreamEngine's rounds
+# ---------------------------------------------------------------------------
+
+SLEEP_CYCLES = 200_000  # about 0.1 ms at the H100's clock
+
+
+def _slowed(stream, cycles):
+    """``stream`` (whose sink is a segment) with every cell prefixed by a
+    ``torch.cuda._sleep`` on the stream it is issued on, so that a
+    consumer that does not wait for its producer reads a wrong value."""
+    import dataclasses
+
+    from repro_torch.core import Stream
+
+    seg = stream.node
+    inner = seg.cell_fn
+
+    def cell(*args):
+        torch.cuda._sleep(cycles)
+        return inner(*args)
+
+    return Stream(dataclasses.replace(seg, cell_fn=cell))
+
+
+def _future_programs():
+    from repro_torch.algorithms import polynomial as poly
+    from repro_torch.algorithms import sieve
+    from repro_torch.core import Stream
+
+    w8 = torch.arange(8, dtype=torch.float32, device="cuda")
+
+    def cell(state, item):
+        return state + 1, item * 1.001 + state
+
+    def equiv(m):
+        items = torch.linspace(0, 1, 3 * m, device="cuda").reshape(m, 3)
+        return Stream.source(items).through(cell, w8)
+
+    x = poly.fateman_poly(6, 128, 4, device="cuda")  # 16 cells of 8 terms
+    return {
+        "equiv": lambda: equiv(6),
+        "equiv_ragged": lambda: equiv(5),
+        "sieve": lambda: sieve.sieve_stream(600, block_size=64, primes_per_cell=2,
+                                            num_cells=56, device="cuda"),
+        "fateman6": lambda: poly.times_stream(x, x, num_x_chunks=4, terms_per_cell=8),
+    }
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["plain", "slowed"])
+@pytest.mark.parametrize("name", ["equiv", "equiv_ragged", "sieve", "fateman6"])
+def test_future_on_four_streams_equals_lazy(name, slow):
+    from repro_torch import pytree as P
+    from repro_torch.core import FutureEvaluator, LazyEvaluator
+
+    make = _future_programs()[name]
+    want = make().collect(LazyEvaluator())
+    for schedule, v in (("gpipe", 1), ("one_f_one_b", 1), ("interleaved", 2)):
+        stream = make()
+        if slow:
+            stream = _slowed(stream, SLEEP_CYCLES)
+        ev = FutureEvaluator(4, schedule=schedule, interleave=v)
+        with _NoHostSync():
+            got = stream.collect(ev)
+        torch.cuda.synchronize()
+        for a, b in zip(P.leaves((got.items, got.states)), P.leaves((want.items, want.states))):
+            assert torch.equal(a, b), (name, schedule)
+
+
+def test_future_stages_overlap_on_the_card():
+    """Each stage runs on a stream of its own: with every cell slowed,
+    the units of two stages overlap in time (events per stage and tick)."""
+    from repro_torch.core import FutureEvaluator
+
+    stream = _slowed(_future_programs()["equiv"](), 2_000_000)
+    ev = FutureEvaluator(4, time_units=True)
+    stream.collect(ev)
+    torch.cuda.synchronize()
+    units = ev.unit_times()
+    assert len(units) == 4 * 6 and len({d for d, *_ in units}) == 4
+    overlap = [(a, b) for a in units for b in units
+               if a[0] < b[0] and a[2] < b[3] and b[2] < a[3]]
+    assert overlap
+
+
+def _serving_model(arch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    base = get_config(arch)
+    if arch == "olmo-1b":
+        cfg = base.with_overrides(num_layers=4, d_model=256, num_heads=4, num_kv_heads=4,
+                                  head_dim=64, d_ff=512, vocab_size=1024)
+    else:
+        cfg = base.with_overrides(
+            num_layers=4, d_model=256, vocab_size=1024,
+            ssm=base.ssm.__class__(state_dim=64, head_dim=32, expand=2, conv_width=4,
+                                   chunk_size=64))
+    return cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "t0.9"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b"])
+def test_stream_engine_future_equals_lazy_on_the_card(arch, temperature):
+    """Narrow OLMo and Mamba2 (4 layer groups, kernels="cuda") through
+    the StreamEngine: Lazy, and Future on 2 stage streams under gpipe and
+    interleaved, emit identical tokens, every round without a host sync
+    inside its collect, and the kernels launched once per (item, layer)
+    and once per emitted item."""
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+
+    cfg, params = _serving_model(arch)
+    ck = 64 if arch == "mamba2-1.3b" else 16
+    scfg = ServeConfig(max_batch=4, max_len=256, prefill_chunk=ck, max_new_tokens=7,
+                       temperature=temperature, seed=11)
+    rng = np.random.default_rng(4)
+    lens = [64, 128, 64, 192, 128, 64] if arch == "mamba2-1.3b" else [5, 40, 17, 64, 3, 30]
+    prompts = [rng.integers(1, 1024, size=n) for n in lens]
+    budgets = [7, 3, 5, 6, 2, 7]
+    outs = []
+    for stages, schedule, v in ((None, "gpipe", 1), (2, "gpipe", 1), (2, "interleaved", 2)):
+        pcfg = DecodePipelineConfig(num_cells=4, microbatches=2, round_steps=3,
+                                    admit_per_round=2, schedule=schedule, interleave=v,
+                                    kernels="cuda")
+        eng = StreamEngine(params, cfg, scfg, pcfg, stages=stages, device="cuda")
+        round_fn = eng._round
+
+        def guarded(*args, _f=round_fn):
+            with _NoHostSync():
+                return _f(*args)
+
+        eng._round = guarded
+        reqs = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+        K.reset_launches()
+        eng.run_until_drained()
+        items = eng.rounds * 3 * 2
+        assert K.LAUNCHES["emit_norm_logits"] == items
+        assert K.LAUNCHES["decode_attention"] == (items * 4 if arch == "olmo-1b" else 0)
+        assert all(r.done and len(r.out_tokens) == b for r, b in zip(reqs, budgets))
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[1] == outs[0] and outs[2] == outs[0]
+
+
+def test_tensor_threefry_on_the_card_equals_numpy():
+    from repro_torch.serve import prng
+    from repro_torch.serve.engine import sample_token, sample_token_t
+
+    uids = np.array([0, 1, 2, 3, 7, 11, 12, 2**31 - 1], np.int32)
+    ngens = np.array([0, 5, 1, 1, 2, 0, 3, 9], np.int32)
+    kn = prng.request_key(11, uids, ngens)
+    uid_t, ngen_t = torch.as_tensor(uids).cuda(), torch.as_tensor(ngens).cuda()
+    lg = (np.random.default_rng(2).normal(size=(8, 50304)) * 3).astype(np.float32)
+    lg_t = torch.as_tensor(lg).cuda()
+    with _NoHostSync():
+        kt = prng.request_key_t(11, uid_t, ngen_t)
+        bits = prng.random_bits_t(kt, (50304,))
+        uni = prng.uniform_t(kt, (50304,), minval=np.finfo(np.float32).tiny)
+        noise = prng.gumbel_t(kt, (50304,))
+    np.testing.assert_array_equal(kt.cpu().numpy(), kn.astype(np.int64))
+    np.testing.assert_array_equal(bits.cpu().numpy(), prng.random_bits(kn, (50304,)).astype(np.int64))
+    np.testing.assert_array_equal(uni.cpu().numpy().view(np.uint32),
+                                  prng.uniform(kn, (50304,), minval=np.finfo(np.float32).tiny).view(np.uint32))
+    want = prng.gumbel(kn, (50304,))
+    ulp = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32))
+    assert (np.abs(noise.cpu().numpy().astype(np.float64) - want) <= 2 * ulp).all()
+    with _NoHostSync():
+        got = sample_token_t(lg_t, 0.9, 11, uid_t, ngen_t)
+    np.testing.assert_array_equal(got.cpu().numpy(), sample_token(lg, 0.9, 11, uids, ngens))

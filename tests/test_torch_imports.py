@@ -147,3 +147,43 @@ def test_algorithm_entry_points_raise_without_cuda(monkeypatch):
         limb.from_int(5, 4)
     p, count = sieve.run_sieve(100, block_size=16, primes_per_cell=2, device="cpu")
     assert int(count) == 25 and p.device.type == "cpu"
+
+
+def test_future_evaluator_and_stream_engine_are_walked():
+    """The modules that hold the FutureEvaluator, the ring hand-off, the
+    decode cells, the tensor sampler and the StreamEngine are among the
+    modules the import test walks (none imports jax or repro)."""
+    import importlib
+
+    mods = set(_modules())
+    for mod, names in (
+        ("repro_torch.core.stream", ("FutureEvaluator",)),
+        ("repro_torch.core.future", ("ppermute_future", "stage_stream")),
+        ("repro_torch.models.transformer", ("make_decode_cell", "make_decode_emit",
+                                            "split_decode_cells", "stack_admission_payload")),
+        ("repro_torch.serve.prng", ("threefry2x32_t", "categorical_t")),
+        ("repro_torch.serve.engine", ("StreamEngine", "sample_token_t")),
+        ("repro_torch.configs.base", ("DecodePipelineConfig",)),
+    ):
+        assert mod in mods
+        assert all(hasattr(importlib.import_module(mod), n) for n in names), mod
+
+
+def test_stream_engine_and_future_evaluator_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.core import FutureEvaluator
+    from repro_torch.serve.engine import StreamEngine
+
+    _cuda_absent(monkeypatch)
+    cfg = smoke_config(get_config("olmo-1b"))
+    params = init_params(T.model_layout(cfg), seed=0, device="cpu")
+    scfg = ServeConfig(max_batch=2, max_len=16, prefill_chunk=4, max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamEngine(params, cfg, scfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FutureEvaluator(2, device="cuda")
+    pcfg = DecodePipelineConfig(num_cells=2, microbatches=2, round_steps=2)
+    eng = StreamEngine(params, cfg, scfg, pcfg, stages=2, device="cpu")
+    req = eng.submit([1, 2, 3])
+    eng.run_until_drained()
+    assert req.done and len(req.out_tokens) == 2
