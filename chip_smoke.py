@@ -973,6 +973,50 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in P.leaves(tree) if t.is_cuda)
 
 
+def guard_rounds(eng, label, shard, rounds, peaks, units=None) -> None:
+    """Run each of ``eng``'s rounds (its ``collect``) under
+    :class:`no_host_sync` and append its host-clock time to ``rounds``
+    and its peak memory rise with its allowance to ``peaks``; fail when
+    the rise passes the memory allocated before the round plus the
+    round's admission payload plus one cell's cache shard (``shard``
+    bytes).  With ``units``, append each collect's unit times."""
+    import torch
+
+    collect = eng._round
+
+    def round_fn(consts, states, init_items, overlay):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        with no_host_sync():
+            out = collect(consts, states, init_items, overlay)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t)
+        if units is not None:
+            units.append(eng.evaluator.unit_times())
+        peak = torch.cuda.max_memory_allocated() - before
+        allowed = tree_bytes(consts.get("adm", {}).get("cache")) + shard
+        peaks.append((peak, allowed))
+        if peak > allowed:
+            fail(f"stream engine {label}: a round's peak memory rose {peak} bytes, allowed "
+                 f"{allowed} (the admission payload and one cell's cache shard)")
+        return out
+
+    eng._round = round_fn
+
+
+def count_prefills(eng, prefills) -> None:
+    """Count ``eng``'s prefill calls in ``prefills[0]``."""
+    prefill = eng._prefill
+
+    def counted_prefill(*args, **kw):
+        prefills[0] += 1
+        return prefill(*args, **kw)
+
+    eng._prefill = counted_prefill
+
+
 def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overlap=False,
                       **pipe):
     """Serve the 12 requests through ``StreamEngine`` (OLMo-1B "flash",
@@ -1002,32 +1046,8 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
     shard = tree_bytes(eng.cell_states) // pcfg.num_cells
     rounds, prefills, peaks, units = [], [0], [], []
     eng.evaluator.time_units = overlap
-    collect, prefill = eng._round, eng._prefill
-
-    def round_fn(consts, states, init_items, overlay):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        t = time.perf_counter()
-        with no_host_sync():
-            out = collect(consts, states, init_items, overlay)
-        torch.cuda.synchronize()
-        rounds.append(time.perf_counter() - t)
-        if overlap:
-            units.append(eng.evaluator.unit_times())
-        peak = torch.cuda.max_memory_allocated() - before
-        allowed = tree_bytes(consts.get("adm", {}).get("cache")) + shard
-        peaks.append((peak, allowed))
-        if peak > allowed:
-            fail(f"stream engine {label}: a round's peak memory rose {peak} bytes, allowed "
-                 f"{allowed} (the admission payload and one cell's cache shard)")
-        return out
-
-    def counted_prefill(*args, **kw):
-        prefills[0] += 1
-        return prefill(*args, **kw)
-
-    eng._round, eng._prefill = round_fn, counted_prefill
+    guard_rounds(eng, label, shard, rounds, peaks, units if overlap else None)
+    count_prefills(eng, prefills)
     K.reset_launches()
     t0 = time.perf_counter()
     reqs = [eng.submit(p) for p in prompts]
@@ -1065,7 +1085,7 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
 def run_stream_engine_phase(cfg, params, smi, engine_greedy, engine_hot):
     """Runs a-f: the StreamEngine under the Lazy and the Future evaluator
     against the Engine's tokens and each other.  Returns the summed
-    launch counts."""
+    launch counts and b's tokens (which c, d and e equal)."""
     total = dict(NO_LAUNCHES)
 
     def run(label, **kw):
@@ -1103,6 +1123,386 @@ def run_stream_engine_phase(cfg, params, smi, engine_greedy, engine_hot):
     print(f"stream engine f: two runs identical; {agree(hot[0], engine_hot)}/{n} tokens equal to "
           f"the Engine's temperature-0.9 tokens (the emit samples on the card, the Engine on "
           f"the host)", flush=True)
+    return total, b
+
+
+# ---------------------------------------------------------------------------
+# Supervised phase
+# ---------------------------------------------------------------------------
+
+# Device memory the supervisor's own work (snapshot, numerics scan,
+# restore) may add: the scan's few flags, never a cache-sized buffer.
+SUPERVISOR_PEAK_BYTES = 1 << 20
+# (kind, round) of the chaos scenarios: the Engine's and StreamEngine c's
+ENGINE_CHAOS = (("raise", 2), ("nan", 3))
+STREAM_CHAOS = (("raise", 2), ("nan", 3), ("wedge", 1), ("sigterm", 4))
+MID_ROUND = (2, 5)  # (round, item): the cell that raises once
+SLOW_CYCLES = 10_000_000  # torch.cuda._sleep before every cell of that round (~5 ms)
+
+
+def instrument_supervisor(sup, spent) -> None:
+    """Time the supervisor's snapshot, numerics scan, restore and whole
+    round on the host clock (each ends in a sync) into ``spent[name]``,
+    and fail when the snapshot, scan or restore raises the device's peak
+    memory by more than :data:`SUPERVISOR_PEAK_BYTES`: the snapshot lives
+    in host memory."""
+    import torch
+
+    for name in ("_snapshot", "_check_numerics", "restore", "step"):
+        fn = getattr(sup, name)
+
+        def call(*args, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            if _name != "step":
+                torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent.setdefault(_name, []).append(time.perf_counter() - t)
+            if _name != "step":
+                rise = torch.cuda.max_memory_allocated() - before
+                spent.setdefault("rise", []).append(rise)
+                if rise > SUPERVISOR_PEAK_BYTES:
+                    fail(f"supervisor {_name} raised the device's peak memory by {rise} bytes")
+            return out
+
+        setattr(sup, name, call)
+
+
+def supervised_run(eng, prompts, label, *, fault=None, cfg=None, spent=None, wrap=None):
+    """Serve ``prompts`` through ``ServeSupervisor(eng)`` from the
+    pristine snapshot ``eng.pristine``, with the chaos ``fault`` (kind,
+    round) if given; ``spent`` collects the supervisor's times
+    (:func:`instrument_supervisor`), ``wrap(sup)`` may wrap its methods.
+    Fails unless every request finishes with 0 lost (and, for sigterm,
+    the supervisor drained).  Returns the supervisor, the tokens and the
+    launch counts of the run."""
+    import signal
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.serve.supervisor import ServeSupervisor, SupervisorConfig, chaos_injector
+
+    kw = {}
+    if fault and fault[0] == "wedge":
+        kw["wedge_seconds"] = 2 * cfg.deadline_s
+    sup = ServeSupervisor(eng, cfg or SupervisorConfig(),
+                          fail_injector=fault and chaos_injector(*fault, **kw))
+    sup.restore(eng.pristine)
+    if spent is not None:
+        instrument_supervisor(sup, spent)
+    if wrap is not None:
+        wrap(sup)
+    prev = signal.getsignal(signal.SIGTERM)
+    sup.install_signal_handlers()
+    K.reset_launches()
+    try:
+        reqs = [sup.submit(p) for p in prompts]
+        sup.run_until_drained()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if sup.stats["requests_lost"] or not all(r.done and r.status == "ok" for r in reqs):
+        fail(f"supervised {label}: requests lost ({sup.stats})")
+    if fault and fault[0] == "sigterm" and not (sup.draining
+                                                and {"event": "drained"} in sup.events):
+        fail(f"supervised {label}: SIGTERM did not drain ({sup.events})")
+    if fault and fault[0] != "sigterm" and sup.stats["restarts"] < 1:
+        fail(f"supervised {label}: the fault was not detected ({sup.stats})")
+    return sup, [r.out_tokens for r in reqs], launches
+
+
+def print_supervisor_times(label, spent, nbytes, smi) -> None:
+    """The supervisor's costs per round, from :func:`instrument_supervisor`
+    (the first snapshot also allocates the supervisor's pinned buffers,
+    so it is reported apart)."""
+    snap, scan, step = spent["_snapshot"], spent["_check_numerics"], spent["step"]
+    rest = snap[1:] or snap
+    print(f"supervised {label} ({smi}): {len(step)} rounds, round p50 "
+          f"{statistics.median(step) * 1e3:.2f} ms (host clock, supervised); snapshot of "
+          f"{nbytes} bytes to pinned host memory: first {snap[0] * 1e3:.2f} ms (allocating), "
+          f"then p50 {statistics.median(rest) * 1e3:.2f} ms, max {max(rest) * 1e3:.2f} ms "
+          f"({nbytes / statistics.median(rest) / 1e9:.1f} GB/s), "
+          f"{sum(snap) / sum(step):.3f} of the supervised rounds' time; numerics scan p50 "
+          f"{statistics.median(scan) * 1e3:.3f} ms, max {max(scan) * 1e3:.3f} ms; the snapshots "
+          f"and scans raised the device's peak memory by at most {max(spent['rise'])} bytes "
+          f"(allowed {SUPERVISOR_PEAK_BYTES})", flush=True)
+
+
+def restore_times(spent) -> str:
+    """The restores of a faulty run (host clock, each ending in a sync)."""
+    times = spent.get("restore", [])
+    return (f"{len(times)} restore(s) of the snapshot into the cache in place, "
+            f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms" if times else "no restore")
+
+
+def run_supervised_engine(cfg, params, smi, want) -> dict:
+    """The ``Engine`` (OLMo-1B ``"flash"``, the kernels) under the
+    supervisor: fault-free with its per-round costs, then each fault of
+    :data:`ENGINE_CHAOS`; every run's tokens equal ``want`` (the
+    unsupervised greedy run's) and its launches equal the decode steps
+    and prefill calls it issued, replays included.  Returns the summed
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.supervisor import ServeSupervisor
+
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, prefill_chunk=128,
+                       attn_impl="flash")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
+    eng = Engine(params, cfg, scfg, device="cuda")
+    eng.pristine = ServeSupervisor(eng).snapshot()
+    prefills = [0]
+    count_prefills(eng, prefills)
+    total = dict(NO_LAUNCHES)
+    layers = cfg.num_layers
+    base = None
+    for fault in (None,) + ENGINE_CHAOS:
+        label = f"engine {'fault-free' if fault is None else '%s@%d' % fault}"
+        steps0, prefills0, spent = eng.decode_steps, prefills[0], {}
+        sup, tokens, launches = supervised_run(eng, prompts, label, fault=fault, spent=spent)
+        steps, calls = eng.decode_steps - steps0, prefills[0] - prefills0
+        expected = dict(NO_LAUNCHES, decode_attention=steps * layers, emit_norm_logits=steps,
+                        attention=calls * layers)
+        if launches != expected:
+            fail(f"supervised {label}: launch counts {launches}, expected {expected}")
+        if tokens != want:
+            fail(f"supervised {label}: tokens differ from the unsupervised flash Engine's")
+        if base is None:
+            base = (steps, calls)
+            print_supervisor_times("engine fault-free", spent, tree_bytes(eng.cache), smi)
+        # a raise comes before the round's work; a poisoned round ran its
+        # one decode step before the scan caught it, and replays it
+        replays = sup.stats["restarts"] if fault and fault[0] == "nan" else 0
+        if steps != base[0] + replays:
+            fail(f"supervised {label}: {steps} decode steps, expected {base[0]} + {replays}")
+        for k, v in launches.items():
+            total[k] += v
+        print(f"supervised {label}: 0 requests lost, tokens identical to the unsupervised "
+              f"flash Engine's; stats {sup.stats}; {steps} decode steps ({steps - base[0]} "
+              f"replayed) and {calls} prefill calls ({calls - base[1]} replayed); "
+              f"{restore_times(spent)}; launches {launches}", flush=True)
+    del eng
+    return total
+
+
+def run_supervised_stream(cfg, params, smi, want) -> dict:
+    """StreamEngine run c's program (Future, gpipe, 4 stage streams, 8
+    cells, 4 microbatches) under the supervisor: fault-free, each fault of
+    :data:`STREAM_CHAOS` (the watchdog at 3x the slowest fault-free round,
+    the wedge at twice that), and a cell that raises once at item 5 of
+    round 2 while every cell of that round is slowed on the card, so that
+    earlier items are still in flight on other stage streams (after the
+    restore the cache must equal the round's snapshot bitwise).  Each run
+    loses no request and gives ``want`` (run c's tokens); its launches
+    are 2 decode attentions a cell call (2 layers a cell), 1 emit an
+    emitted item and 16 flash attentions a prefill call, counted from the
+    calls it made, replays included.  Returns the summed launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import pytree as P
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.core import graph as G
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+    from repro_torch.serve.supervisor import ServeSupervisor, SupervisorConfig
+
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, prefill_chunk=128,
+                       attn_impl="flash")
+    pcfg = DecodePipelineConfig(kernels="cuda", num_cells=8, microbatches=4, schedule="gpipe")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
+    eng = StreamEngine(params, cfg, scfg, pcfg, stages=4, device="cuda")
+    eng.pristine = ServeSupervisor(eng).snapshot()
+    shard = tree_bytes(eng.cell_states) // pcfg.num_cells
+    per_cell = cfg.num_layers // pcfg.num_cells
+    items = pcfg.round_steps * pcfg.microbatches
+    rounds, peaks, prefills = [], [], [0]
+    guard_rounds(eng, "supervised c", shard, rounds, peaks)
+    count_prefills(eng, prefills)
+    calls = {"cell": 0, "emit": 0, "round": 0, "slow": False, "raise_at": None}
+    cell_fn, emit, collect = eng._cell_fn, eng._emit, eng._round
+
+    def cell(const, state, item):
+        if calls["slow"]:
+            torch.cuda._sleep(SLOW_CYCLES)
+        if calls["raise_at"] == (calls["round"], G.current_item()):
+            calls["raise_at"] = None
+            raise RuntimeError("a cell fails mid-round")
+        out = cell_fn(const, state, item)
+        calls["cell"] += 1
+        return out
+
+    def counted_emit(item):
+        out = emit(item)
+        calls["emit"] += 1
+        return out
+
+    def counted_round(*args):
+        calls["slow"] = calls["raise_at"] is not None and calls["round"] == MID_ROUND[0]
+        try:
+            return collect(*args)
+        finally:
+            calls["round"] += 1
+            calls["slow"] = False
+
+    eng._cell_fn, eng._emit, eng._round = cell, counted_emit, counted_round
+
+    def run(label, fault=None, cfg_=None, spent=None, wrap=None):
+        for k in ("cell", "emit", "round"):
+            calls[k] = 0
+        p0, r0 = prefills[0], eng.rounds
+        sup, tokens, launches = supervised_run(eng, prompts, label, fault=fault, cfg=cfg_,
+                                               spent=spent, wrap=wrap)
+        expected = dict(NO_LAUNCHES, decode_attention=calls["cell"] * per_cell,
+                        emit_norm_logits=calls["emit"],
+                        attention=(prefills[0] - p0) * cfg.num_layers)
+        if launches != expected:
+            fail(f"supervised {label}: launch counts {launches}, expected {expected}")
+        if tokens != want:
+            fail(f"supervised {label}: tokens differ from StreamEngine run c's")
+        return sup, launches, eng.rounds - r0, prefills[0] - p0
+
+    total = dict(NO_LAUNCHES)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    spent = {}
+    sup, launches, base_rounds, base_prefills = run("c fault-free", spent=spent)
+    add(launches)
+    base_cells = calls["cell"]
+    if base_cells != base_rounds * items * pcfg.num_cells:
+        fail(f"supervised c: {base_cells} cell calls for {base_rounds} rounds")
+    print_supervisor_times("stream c fault-free", spent, tree_bytes(eng.cell_states), smi)
+    deadline = 3 * max(spent["step"])
+    print(f"supervised c fault-free: tokens identical to run c's; {base_rounds} rounds, "
+          f"{base_prefills} prefill calls; launches {launches}; watchdog deadline "
+          f"{deadline:.3f} s (3x the slowest supervised round)", flush=True)
+    for fault in STREAM_CHAOS:
+        label, spent = "c %s@%d" % fault, {}
+        sup, launches, n_rounds, n_prefills = run(
+            label, fault, SupervisorConfig(deadline_s=deadline), spent=spent)
+        add(launches)
+        # raise and sigterm add no work; nan and wedge ran their round once
+        # before the scan or the watchdog caught it, and ran it again
+        replays = sup.stats["restarts"] if fault[0] in ("nan", "wedge") else 0
+        if n_rounds != base_rounds + replays or calls["cell"] != (
+                base_cells + replays * items * pcfg.num_cells):
+            fail(f"supervised {label}: {n_rounds} rounds and {calls['cell']} cell calls, "
+                 f"expected {base_rounds} + {replays} replayed rounds")
+        print(f"supervised {label}: 0 requests lost, tokens identical to run c's; stats "
+              f"{sup.stats}; {n_rounds} rounds ({replays} replayed), {n_prefills} prefill calls "
+              f"({n_prefills - base_prefills} replayed); {restore_times(spent)}; launches "
+              f"{launches}", flush=True)
+
+    # A cell raises mid-round with earlier items in flight on the stage
+    # streams: after the restore the cache must be the round's snapshot.
+    checked = []
+
+    def check_restores(sup):
+        restore = sup.restore
+
+        def checked_restore(snap):
+            restore(snap)
+            torch.cuda.synchronize()
+            checked.append(all(torch.equal(leaf.cpu(), host) for leaf, host in
+                               zip(P.leaves(eng.cell_states), P.leaves(snap.device))))
+
+        sup.restore = checked_restore
+
+    calls["raise_at"], spent = MID_ROUND, {}
+    sup, launches, n_rounds, n_prefills = run("c mid-round", spent=spent, wrap=check_restores)
+    add(launches)
+    partial = calls["cell"] - base_cells
+    if checked != [True] or sup.stats["restarts"] != 1 or n_rounds != base_rounds:
+        fail(f"supervised c mid-round: restore checks {checked}, stats {sup.stats}, "
+             f"{n_rounds} rounds")
+    print(f"supervised c mid-round (a cell raises at item {MID_ROUND[1]} of round "
+          f"{MID_ROUND[0]}, every cell of that round slowed by torch.cuda._sleep"
+          f"({SLOW_CYCLES})): the cache after the restore equals the round's snapshot "
+          f"bitwise; 0 requests lost, tokens identical to run c's; stats {sup.stats}; "
+          f"{partial} cell calls of the failed round replayed; {restore_times(spent)}; "
+          f"launches {launches}",
+          flush=True)
+    worst = max(p / a for p, a in peaks)
+    print(f"supervised c: every round's peak memory rise at most {worst:.3f} of the "
+          f"unsupervised allowance (payload + one shard of {shard} bytes)", flush=True)
+    eng._cell_fn, eng._emit = cell_fn, emit
+    del eng
+    return total, deadline
+
+
+def run_supervised_cli(cfg, deadline, smi) -> dict:
+    """The port's serve CLI in process at full width: StreamEngine c's
+    program with ``--chaos raise@2`` and the watchdog, then without the
+    chaos; the same tokens, 0 requests lost, and the same launches (the
+    raise comes before its round's work), 16 decode attentions an
+    emitted item.  Returns the summed launch counts."""
+    import ast
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve
+
+    argv = ["--arch", cfg.name, "--engine", "stream", "--devices", "4", "--cells", "8",
+            "--microbatches", "4", "--max-batch", "8", "--max-len", "1024",
+            "--prefill-chunk", "128", "--requests", "12", "--max-new", "32",
+            "--prompt-len", "100", "--kernels", "cuda",
+            "--watchdog-ms", f"{deadline * 1e3:.0f}"]
+    runs = []
+    for extra in (["--chaos", "raise@2"], []):
+        out = io.StringIO()
+        K.reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            done = serve.main(argv + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(K.LAUNCHES)
+        text = out.getvalue()
+        stats = ast.literal_eval(re.search(r"supervisor: (\{.*\})", text).group(1))
+        tokens = {r.uid: r.out_tokens for r in done}
+        if (len(done) != 12 or stats["requests_lost"]
+                or not all(len(t) == 32 for t in tokens.values())):
+            fail(f"serve CLI {extra}: {len(done)} requests done, stats {stats}")
+        if launches["decode_attention"] != cfg.num_layers * launches["emit_norm_logits"]:
+            fail(f"serve CLI {extra}: launch counts {launches}")
+        runs.append((tokens, launches, stats))
+        print(f"serve CLI {' '.join(extra) or 'fault-free'} (in process, {wall:.1f} s with "
+              f"its weights): {text.splitlines()[0]}; {text.splitlines()[1]}; stats {stats}; "
+              f"launches {launches}", flush=True)
+    (chaos, l_chaos, s_chaos), (clean, l_clean, _) = runs
+    if chaos != clean or l_chaos != l_clean or s_chaos["restarts"] != 1:
+        fail("serve CLI: --chaos raise@2 did not replay to the fault-free tokens and launches")
+    print(f"serve CLI ({smi}): --chaos raise@2 gives the fault-free tokens of all 12 requests "
+          f"and the same launches", flush=True)
+    total = dict(NO_LAUNCHES)
+    for _, launches, _ in runs:
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def run_supervised_phase(cfg, params, smi, engine_greedy, stream_c) -> dict:
+    """The supervised engines and the serve CLI; returns the launches."""
+    total = dict(NO_LAUNCHES)
+    engine = run_supervised_engine(cfg, params, smi, engine_greedy)
+    stream, deadline = run_supervised_stream(cfg, params, smi, stream_c)
+    cli = run_supervised_cli(cfg, deadline, smi)
+    for part in (engine, stream, cli):
+        for k, v in part.items():
+            total[k] += v
     return total
 
 
@@ -1299,6 +1699,7 @@ def main() -> int:
         fail(f"the repro_torch package is not beside this script ({e})")
 
     # 1. Setup
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -1363,10 +1764,14 @@ def main() -> int:
     run_prefill_end_to_end(cfg, params)
 
     # 5. The StreamEngine: decode rounds under the Lazy and Future evaluators
-    se_launches = run_stream_engine_phase(cfg, params, smi, flash_tokens, hot[0])
+    se_launches, stream_c = run_stream_engine_phase(cfg, params, smi, flash_tokens, hot[0])
+
+    # 5b. Supervised serving: both engines under ServeSupervisor with chaos
+    # faults, and the serve CLI
+    sup_launches = run_supervised_phase(cfg, params, smi, flash_tokens, stream_c)
     for name, op in (("decode_attention", "decode_attention"),
                      ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention")):
-        launches[name] += se_launches[op]
+        launches[name] += se_launches[op] + sup_launches[op]
     del params
     torch.cuda.empty_cache()
 
@@ -1405,6 +1810,7 @@ def main() -> int:
          "launches": launches[name], **results[name]}
         for name, (src, replaces) in source.items()
     ]
+    print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,24 @@ Public API (the ported part of ``repro.core``):
     stream, and the pipeline's ring hand-off
   SchedulePlan, build_plan, CombinedPlan, build_combined_plan,
     build_backward_plan — the schedule zoo's tick tables
-  chunk_axis, unchunk_axis
+  ChunkPolicy, ScheduleChoice, bubble_fraction, optimal_num_chunks,
+    optimal_schedule and the rest of the paper's chunk-size model;
+    chunk_axis, unchunk_axis
 """
-from repro_torch.core.chunking import chunk_axis, unchunk_axis
+from repro_torch.core.chunking import (
+    ChunkPolicy,
+    ScheduleChoice,
+    bubble_fraction,
+    chunk_axis,
+    feed_peak_items,
+    optimal_num_chunks,
+    optimal_schedule,
+    pipeline_step_time,
+    schedule_bubble_fraction,
+    schedule_peak_items,
+    schedule_ticks,
+    unchunk_axis,
+)
 from repro_torch.core.future import Future, HostFuture, defer, ppermute_future
 from repro_torch.core.graph import (
     ChainProgram,
@@ -46,24 +61,34 @@ from repro_torch.core.stream import (
 __all__ = [
     "BACKWARD_MODES",
     "ChainProgram",
+    "ChunkPolicy",
     "CombinedPlan",
     "Future",
     "FutureEvaluator",
     "HostFuture",
     "LazyEvaluator",
     "SCHEDULES",
+    "ScheduleChoice",
     "SchedulePlan",
     "Stream",
     "StreamProgram",
     "StreamResult",
     "build_backward_plan",
     "build_combined_plan",
+    "bubble_fraction",
     "build_plan",
     "chunk_axis",
     "defer",
     "evaluate",
+    "feed_peak_items",
     "lower_chain",
+    "optimal_num_chunks",
+    "optimal_schedule",
+    "pipeline_step_time",
     "ppermute_future",
     "run_chain_sequential",
+    "schedule_bubble_fraction",
+    "schedule_peak_items",
+    "schedule_ticks",
     "unchunk_axis",
 ]

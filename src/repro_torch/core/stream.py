@@ -257,7 +257,9 @@ class FutureEvaluator:
     caller's stream (which made the inputs); a value crossing stages is
     forced by the consumer's stream through an event and marked with
     ``record_stream``; the caller's stream waits on every stage stream
-    before the results are handed back.  Each cell's state rows are
+    before the results are handed back, and also when a cell raises, so
+    that nothing the caller issues after the exception (a supervisor's
+    restore) is overtaken by units still running on a stage stream.  Each cell's state rows are
     written only by the stream of the stage that owns them.  Nothing in
     the loop syncs the host with the card.  On the CPU the stages run
     as logical stages in tick order, with no streams and no events.
@@ -417,64 +419,72 @@ class FutureEvaluator:
         buf = [[None] * plan.num_slots for _ in range(d_)]
         outs: list[PyTree] = [None] * m_
         sent: list = [None] * d_  # what each stage produced last tick
-        for t in range(plan.num_ticks):
-            made: list = [None] * d_
-            for d in range(d_):
-                m = int(plan.microbatch[t, d])
-                if m < 0:  # idle: no scan, no state touched
-                    continue
-                p = int(plan.group[t, d]) * d_ + d
-                with _on(streams[d]):
-                    if self.time_units and streams[d] is not None:
-                        start = torch.cuda.Event(enable_timing=True)
-                        start.record(streams[d])
-                    slot = int(plan.read_slot[t, d])
-                    if slot < 0:  # a fresh item of the primary source
-                        inp = item(sources[0], m)
-                        if fb is None:
-                            for s in entry:
-                                inp = combines[s](inp, item(sources[s], m))
-                    else:  # a hand-off, or under feedback item m - lag's output
-                        if buf[d][slot] is None:
-                            raise RuntimeError(
-                                f"plan fault: stage {d} reads an empty slot {slot} at tick {t}"
-                            )
-                        inp, buf[d][slot] = buf[d][slot].force(), None
-                    for s in (entry if fb is not None else []) + interior:
-                        if plan.src_consume[s, t] and d == plan.inject_devices[s]:
-                            merged = combines[s](inp, item(sources[s], m))
-                            if fb is not None and s in entry and not G.structures_match(inp, merged):
-                                raise ValueError(
-                                    "entry zips on a feedback chain must preserve the "
-                                    "primary item structure (the fed-back item re-enters "
-                                    "through the same combines)"
+        try:
+            for t in range(plan.num_ticks):
+                made: list = [None] * d_
+                for d in range(d_):
+                    m = int(plan.microbatch[t, d])
+                    if m < 0:  # idle: no scan, no state touched
+                        continue
+                    p = int(plan.group[t, d]) * d_ + d
+                    with _on(streams[d]):
+                        if self.time_units and streams[d] is not None:
+                            start = torch.cuda.Event(enable_timing=True)
+                            start.record(streams[d])
+                        slot = int(plan.read_slot[t, d])
+                        if slot < 0:  # a fresh item of the primary source
+                            inp = item(sources[0], m)
+                            if fb is None:
+                                for s in entry:
+                                    inp = combines[s](inp, item(sources[s], m))
+                        else:  # a hand-off, or under feedback item m - lag's output
+                            if buf[d][slot] is None:
+                                raise RuntimeError(
+                                    f"plan fault: stage {d} reads an empty slot {slot} at tick {t}"
                                 )
-                            inp = merged
-                    out, rows[p] = G.scan_cells(
-                        cell_fn, mutable, inp, consts[p], rows[p], item=m
-                    )
-                    if fb is not None and plan.emit[t, d]:
-                        emitted = fb.emit(out)
-                        G._check_emit_structure(out, emitted)
-                        out = emitted
-                    if plan.collect[t, d]:
-                        outs[m] = out
-                    if self.time_units and streams[d] is not None:
-                        end = torch.cuda.Event(enable_timing=True)
-                        end.record(streams[d])
-                        self._unit_events.append((d, t, start, end))
-                made[d] = ppermute_future(out, streams[d])
-            # The hop of last tick's outputs lands now, after this tick's
-            # reads (a slot read at t may be refilled at t).
-            for d in range(d_):
-                slot = int(plan.recv_slot[t, d])
-                if slot >= 0:
-                    buf[d][slot] = sent[(d - 1) % d_]
-            sent = made
+                            inp, buf[d][slot] = buf[d][slot].force(), None
+                        for s in (entry if fb is not None else []) + interior:
+                            if plan.src_consume[s, t] and d == plan.inject_devices[s]:
+                                merged = combines[s](inp, item(sources[s], m))
+                                if (fb is not None and s in entry
+                                        and not G.structures_match(inp, merged)):
+                                    raise ValueError(
+                                        "entry zips on a feedback chain must preserve the "
+                                        "primary item structure (the fed-back item re-enters "
+                                        "through the same combines)"
+                                    )
+                                inp = merged
+                        out, rows[p] = G.scan_cells(
+                            cell_fn, mutable, inp, consts[p], rows[p], item=m
+                        )
+                        if fb is not None and plan.emit[t, d]:
+                            emitted = fb.emit(out)
+                            G._check_emit_structure(out, emitted)
+                            out = emitted
+                        if plan.collect[t, d]:
+                            outs[m] = out
+                        if self.time_units and streams[d] is not None:
+                            end = torch.cuda.Event(enable_timing=True)
+                            end.record(streams[d])
+                            self._unit_events.append((d, t, start, end))
+                    made[d] = ppermute_future(out, streams[d])
+                # The hop of last tick's outputs lands now, after this tick's
+                # reads (a slot read at t may be refilled at t).
+                for d in range(d_):
+                    slot = int(plan.recv_slot[t, d])
+                    if slot >= 0:
+                        buf[d][slot] = sent[(d - 1) % d_]
+                sent = made
+        finally:
+            # Joined on every exit: a cell that raises mid-plan leaves the
+            # units issued before it running on their stage streams, and
+            # work the caller issues next (a restore of the state) must
+            # not be overtaken by their writes.
+            if caller is not None:
+                for st in streams:
+                    caller.wait_stream(st)
 
         if caller is not None:
-            for st in streams:
-                caller.wait_stream(st)
             for leaf in P.leaves((outs, rows)):
                 if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
                     leaf.record_stream(caller)

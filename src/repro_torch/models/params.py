@@ -92,6 +92,13 @@ def init_params(
     return map_tree(one, layout)
 
 
+def param_count(layout: PyTree) -> int:
+    """The number of parameters a layout of :class:`ParamSpec` declares."""
+    if isinstance(layout, dict):
+        return sum(param_count(v) for v in layout.values())
+    return int(np.prod(layout.shape))
+
+
 def params_from_numpy(tree: PyTree, device: str | torch.device = "cuda") -> PyTree:
     """The weight bridge: a parameter tree of numpy arrays -> tensors.
 

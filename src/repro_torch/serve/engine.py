@@ -69,7 +69,7 @@ import torch
 from repro_torch import pytree as P
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, DecodePipelineConfig
-from repro_torch.core import FutureEvaluator, LazyEvaluator, Stream
+from repro_torch.core import FutureEvaluator, LazyEvaluator, Stream, chunking
 from repro_torch.kernels import resolve_mode
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -440,6 +440,44 @@ def decode_copy_bytes_per_tick(
     layout = T.cache_layout(cfg, microbatch, 1 if row_scatter else max_len)
     total = sum(leaf.numel() * leaf.element_size() for leaf in P.leaves(layout))
     return total // num_cells
+
+
+def suggest_decode_pipeline(
+    cfg: ArchConfig,
+    *,
+    devices: int,
+    work_per_item: float,
+    per_tick_overhead: float,
+    microbatch: int,
+    num_cells: int,
+    copy_bytes_per_second: float = 50e9,
+    max_len: int = 1024,
+    row_scatter: bool = True,
+    max_chunks: int = 64,
+):
+    """Pick a decode (schedule, M, V) with the cache-traffic term included.
+
+    Thin serving-side threading of the chunking cost model: converts the
+    per-tick copy bytes of the decode cells (row-scatter or slab) into a
+    time term and hands it to
+    :func:`repro_torch.core.chunking.optimal_schedule`.  ``devices`` is
+    the pipeline's stage count (stage streams of one card here).
+    Returns a :class:`repro_torch.core.chunking.ScheduleChoice`.
+    """
+    per_tick_copy = chunking.copy_time_per_tick(
+        decode_copy_bytes_per_tick(
+            cfg, microbatch, num_cells,
+            row_scatter=row_scatter, max_len=max_len,
+        ),
+        copy_bytes_per_second,
+    )
+    return chunking.optimal_schedule(
+        work_per_item,
+        devices,
+        per_tick_overhead,
+        max_chunks=max_chunks,
+        per_tick_copy=per_tick_copy,
+    )
 
 
 _OVERLAY_KEYS = ("x", "tok", "pos", "active", "uid", "ngen", "budget")

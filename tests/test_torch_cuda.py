@@ -984,3 +984,122 @@ def test_tensor_threefry_on_the_card_equals_numpy():
     with _NoHostSync():
         got = sample_token_t(lg_t, 0.9, 11, uid_t, ngen_t)
     np.testing.assert_array_equal(got.cpu().numpy(), sample_token(lg, 0.9, 11, uids, ngens))
+
+
+# ---------------------------------------------------------------------------
+# Faults in the middle of a Future round, and the supervisor on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("schedule,v", [("gpipe", 1), ("interleaved", 2)])
+def test_future_raise_mid_plan_joins_the_stage_streams(schedule, v):
+    """Cells that write their state in place, each slowed on its stage
+    stream, and one that raises at item 3 while earlier items are still
+    queued on the other stages: a restore issued on the caller's stream
+    right after the exception, with no host sync, is not overtaken by
+    those writes (the evaluator joins every stage stream to the caller on
+    the exception path too)."""
+    from repro_torch.core import FutureEvaluator, Stream
+    from repro_torch.core import graph as G
+
+    state = torch.arange(8 * 16, dtype=torch.float32, device="cuda").reshape(8, 16)
+    items = torch.linspace(0, 1, 6 * 16, device="cuda").reshape(6, 16)
+    snap = state.clone()
+
+    def cell(s, item):
+        torch.cuda._sleep(20 * SLEEP_CYCLES)
+        if G.current_item() == 3:
+            raise RuntimeError("a cell fails mid-plan")
+        s.mul_(1.5).add_(item)
+        return s, item + 1
+
+    ev = FutureEvaluator(4, schedule=schedule, interleave=v)
+    with pytest.raises(RuntimeError, match="mid-plan"):
+        with _NoHostSync():
+            Stream.source(items).through(cell, state).collect(ev)
+    state.copy_(snap)  # the restore, on the caller's stream, the host not waiting
+    torch.cuda.synchronize()
+    assert torch.equal(state, snap)
+
+
+def _supervised_stream_engine(stages=2):
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+
+    cfg, params = _serving_model("olmo-1b")
+    scfg = ServeConfig(max_batch=4, max_len=256, prefill_chunk=16, max_new_tokens=7)
+    pcfg = DecodePipelineConfig(num_cells=4, microbatches=2, round_steps=3, admit_per_round=2,
+                                kernels="cuda")
+    eng = StreamEngine(params, cfg, scfg, pcfg, stages=stages, device="cuda")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 1024, size=n) for n in (5, 40, 17, 64, 3, 30)]
+    return eng, prompts
+
+
+def test_supervisor_replays_a_mid_round_fault_on_the_card():
+    """StreamEngine under Future on 2 stage streams, every cell slowed:
+    a cell raising at item 3 of round 1 is restored and replayed to the
+    fault-free tokens; the cache tensors keep their storage; a snapshot
+    after a slowed round equals the cache once the card is idle; the
+    snapshot is in pinned host memory."""
+    from repro_torch import pytree as P
+    from repro_torch.core import graph as G
+    from repro_torch.serve.supervisor import ServeSupervisor
+
+    eng, prompts = _supervised_stream_engine()
+    sup = ServeSupervisor(eng)
+    pristine = sup.snapshot()
+    assert all(h.is_pinned() for h in P.leaves(pristine.device))
+    reqs = [sup.submit(p) for p in prompts]
+    sup.run_until_drained()
+    want = [r.out_tokens for r in reqs]
+    ptrs = [t.data_ptr() for t in P.leaves(eng.cell_states)]
+
+    inner, state = eng._cell_fn, {"round": -1, "armed": True}
+    collect = eng._round
+
+    def counted_round(*args):
+        state["round"] += 1
+        return collect(*args)
+
+    def cell(const, s, item):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        if state["armed"] and state["round"] == 1 and G.current_item() == 3:
+            state["armed"] = False
+            raise RuntimeError("a cell fails mid-round")
+        return inner(const, s, item)
+
+    eng._cell_fn, eng._round = cell, counted_round
+    sup = ServeSupervisor(eng)
+    sup.restore(pristine)
+    reqs = [sup.submit(p) for p in prompts]
+    sup.step()
+    snap = sup.snapshot()
+    torch.cuda.synchronize()
+    for leaf, host in zip(P.leaves(eng.cell_states), P.leaves(snap.device)):
+        assert torch.equal(leaf.cpu(), host)
+    sup.run_until_drained()
+    assert not state["armed"] and sup.stats["restarts"] == 1
+    assert sup.stats["requests_lost"] == 0
+    assert [r.out_tokens for r in reqs] == want
+    assert [t.data_ptr() for t in P.leaves(eng.cell_states)] == ptrs
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), float("-inf")])
+def test_numerics_scan_finds_one_nonfinite_element_on_the_card(bad):
+    """One non-finite element anywhere in a bf16 cache leaf on the card is
+    found (the scan reduces each leaf's minimum and maximum there), and a
+    restore clears it."""
+    from repro_torch.serve.supervisor import NumericsFault, ServeSupervisor
+
+    eng, _ = _supervised_stream_engine(stages=None)
+    sup = ServeSupervisor(eng)
+    pristine = sup.snapshot()
+    sup._check_numerics()
+    leaf = eng.cell_states["cache"]["block0"]["v"]
+    assert leaf.dtype == torch.bfloat16
+    leaf[3, 0, 2, 200, 1, 63] = bad
+    with pytest.raises(NumericsFault):
+        sup._check_numerics()
+    sup.restore(pristine)
+    sup._check_numerics()

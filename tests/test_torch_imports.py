@@ -187,3 +187,30 @@ def test_stream_engine_and_future_evaluator_raise_without_cuda(monkeypatch):
     req = eng.submit([1, 2, 3])
     eng.run_until_drained()
     assert req.done and len(req.out_tokens) == 2
+
+
+def test_supervisor_resilience_chunking_and_cli_are_walked():
+    """The supervised serving stack, the resilience runbook, the chunk-size
+    model and the serve CLI are among the modules the import test walks
+    (none imports jax or repro); importing the CLI parses no arguments."""
+    import importlib
+
+    mods = set(_modules())
+    for mod, names in (
+        ("repro_torch.resilience", ("Heartbeat", "InjectedFault", "OneShotInjector",
+                                    "RestartBudget", "RestartPolicy", "StragglerTracker")),
+        ("repro_torch.resilience.injection", ("call_injector",)),
+        ("repro_torch.resilience.heartbeat", ("Heartbeat",)),
+        ("repro_torch.resilience.restart", ("RestartBudget",)),
+        ("repro_torch.resilience.straggler", ("StragglerTracker",)),
+        ("repro_torch.serve.supervisor", ("ServeSupervisor", "SupervisorConfig", "Snapshot",
+                                          "chaos_injector", "poison_cache", "NumericsFault",
+                                          "WatchdogTimeout", "DrainingError", "RoundFault")),
+        ("repro_torch.core.chunking", ("optimal_schedule", "schedule_ticks", "ChunkPolicy")),
+        ("repro_torch.serve.engine", ("suggest_decode_pipeline",)),
+        ("repro_torch.models.params", ("param_count",)),
+        ("repro_torch.launch", ()),
+        ("repro_torch.launch.serve", ("main",)),
+    ):
+        assert mod in mods, mod
+        assert all(hasattr(importlib.import_module(mod), n) for n in names), mod
