@@ -41,7 +41,25 @@
    block's pre-norm, and its gated norm with the gate fused), every
    decode step through the emit kernel.  Then a prefill chunk, a ragged
    tail and a decode step with the kernels against ``kernels="plain"``.
-7. Stream phase: the paper's two algorithms under the port's
+7. Moonlight-16B-A3B at full width and depth (48 layers, 64 experts
+   top-6 + 2 shared, untied V 163840; random weights from seed 0, 57.8
+   GB in bf16), after Mamba's weights are freed: the build's peak memory
+   (the large expert stacks drawn a slice at a time) must leave room for
+   the 3.2 GB cache; the 12 requests through ``Engine`` (``"flash"``,
+   ``kernels="cuda"``), whose counters show decode attention once per
+   decode step and layer, the untied emit once per decode step, flash
+   attention once per prefill call and layer and RMSNorm twice per decode
+   step or prefill call and layer; a decode step kernels vs plain and a
+   prefill chunk at ``pos = 128`` flash vs dense, as in step 4 (the fp32
+   runs upcast one layer group at a time: fp32 weights would take 115
+   GB), with every layer's routes (``expert_ids``, ``keep``) held to the
+   plain path's; layer 0's ``moe_apply`` on 8 and on 128 tokens, 20
+   calls bitwise equal with no host sync; the StreamEngine, each round
+   under the sync guard, Lazy with 4 cells and 1 microbatch (the
+   Engine's tokens), Lazy with 8 cells and 4 microbatches, and Future on
+   4 stage streams (gpipe) with the same cells and microbatches (the
+   Lazy run's tokens).
+8. Stream phase: the paper's two algorithms under the port's
    ``LazyEvaluator`` on the card, each ``collect`` (and the work around
    it that stays on the card) under ``torch.cuda.set_sync_debug_mode
    ("error")``, so that a cell which syncs with the host fails: the
@@ -282,10 +300,11 @@ def run_emit(gen, results):
     b, d, eps = 8, 2048, 1e-5
     main = None
     # OLMo-1B's own case (layernorm, tied, V 50304) first; Mamba2-1.3B's
-    # (rmsnorm, tied, V 50280) second
+    # (rmsnorm, tied, V 50280) second; Moonlight-16B-A3B's (rmsnorm,
+    # untied, V 163840) last
     for norm, tied, v in (("layernorm_nonparam", True, 50304), ("rmsnorm", True, 50280),
                           ("layernorm_nonparam", False, 50304), ("rmsnorm", True, 50304),
-                          ("rmsnorm", False, 50304)):
+                          ("rmsnorm", False, 50304), ("rmsnorm", False, 163840)):
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
             shape, std = ((v, d), 0.02) if tied else ((d, v), d**-0.5)
@@ -717,23 +736,111 @@ def run_engine(cfg, params, label, want, **serve):
     return [r.out_tokens for r in reqs], launches
 
 
+class LayerUpcast:
+    """A group-stacked weight read one layer group at a time in fp32: a
+    model whose fp32 weights do not fit the card (Moonlight's would take
+    115 GB) runs its fp32 steps with one group upcast at a time."""
+
+    def __init__(self, t):
+        self.t, self.shape = t, t.shape
+
+    def __getitem__(self, g):
+        return self.t[g].float()
+
+
+def fp32_params(params):
+    """``params`` in fp32, the layer groups upcast as they are read."""
+    from repro_torch.models.params import map_tree
+
+    return {k: map_tree(LayerUpcast if k == "blocks" else (lambda t: t.float()), v)
+            for k, v in params.items()}
+
+
+def held_to(routes):
+    """``moe.replay_routes(routes)``, or nothing when ``routes`` is None."""
+    import contextlib
+
+    from repro_torch.models import moe as M
+
+    return contextlib.nullcontext() if routes is None else M.replay_routes(routes)
+
+
+def check_routes(label, got, want, rows, dtype):
+    """Hold the kernel path's routes (``got``, the records of
+    ``moe.record_routes``, one a MoE call) to the plain path's
+    (``want``), for calls over ``rows`` sequences of equal length.
+
+    Routing is discontinuous: where a token's router logits differ
+    between the two paths by delta (their fp32 sums in another order, or
+    bf16 values an ulp apart), a pair of logits among its k + 1 largest
+    that lie within 2 delta of each other may swap, and from there on the
+    token's hidden state (and, through attention, its row's) follows
+    another expert.  So at the first layer where a row's routes part,
+    every token whose expert ids differ must have such a near-tie in the
+    plain path's logits, and its delta must be within the end-to-end
+    tolerance of its largest |router logit| (fp32 1e-4, bf16 8 ulps): its
+    input was still the plain path's.  A token whose ``keep`` alone
+    differs must follow a token of its layer whose ids differ (a rank
+    moved).  Returns the rows whose routes parted, the (token, layer)
+    decisions that differ, all decisions, and the worst delta/allowed."""
+    import torch
+
+    parted = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    differ = total = 0
+    worst = 0.0
+    for layer, (g, w) in enumerate(zip(got, want)):
+        t, k = w["expert_ids"].shape
+        row = torch.arange(t, device="cuda") // (t // rows)
+        ids = (g["expert_ids"] != w["expert_ids"]).any(-1)
+        keep = (g["keep"] != w["keep"]).view(t, k).any(-1)
+        moved = ids.cumsum(0) > ids.int()  # an earlier token's ids differ
+        if bool((keep & ~ids & ~moved).any()):
+            fail(f"{label}: layer {layer}: a token's keep differs with no route change before it")
+        diff = ids | keep
+        differ, total = differ + int(diff.sum()), total + t
+        first = ids & ~parted[row]
+        if bool(first.any()):
+            lg, lw = g["logits"][first], w["logits"][first]
+            delta = (lg - lw).abs().amax(-1)
+            top = lw.abs().amax(-1)
+            allowed = 8 * bf16_ulp(top) if dtype == torch.bfloat16 else 1e-4 * top
+            srt = lw.sort(-1, descending=True).values[:, : k + 1]
+            margin = (srt[:, :-1] - srt[:, 1:]).amin(-1)
+            if bool((margin > 2 * delta).any()):
+                fail(f"{label}: layer {layer}: a route differs with no near-tie in the router")
+            worst = max(worst, (delta / allowed).max().item())
+            if worst > 1:
+                fail(f"{label}: layer {layer}: router logits {worst:.3f} x the tolerance apart "
+                     f"where a route first differs")
+        parted |= torch.zeros_like(parted).index_fill_(0, row[diff], True)
+    return parted, differ, total, worst
+
+
 def run_decode_end_to_end(cfg, params):
     """One decode state of the served model, stepped with the kernels and
-    with ``kernels="plain"`` on copies of the same cache, in fp32 (params
-    and cache upcast) and in bf16 (as served).
+    with ``kernels="plain"`` on copies of the same cache, in fp32 (cache
+    upcast, params one layer group at a time: :func:`fp32_params`) and in
+    bf16 (as served).
 
     fp32: the emit tolerance, 1e-4 of each row's largest |logit|.
     bf16: every layer's attention output is rounded to bf16 from fp32
     values that differ in their last bits between the kernel and the
     plain version, and the residual stream carries those one-ulp
     differences through 16 layers: allowed 8 bf16 ulps of each row's
-    largest |logit|.  In both, greedy tokens must agree wherever the
-    plain top-1 beats its top-2 by more than twice the tolerance."""
+    largest |logit|.  A MoE model (48 layers, whose experts' sums carry
+    more) takes the prefill check's bf16 rule instead: with D the
+    distance, per row, between the plain step's bf16 and fp32 logits,
+    allowed 2 D.  In both, greedy tokens must agree wherever the plain
+    top-1 beats its top-2 by more than twice the tolerance.  A MoE model
+    runs every step but the fp32 plain one with that step's routes
+    imposed (``moe.replay_routes``), so that the logits measure numerics;
+    the kernel steps, routing for themselves, are held to the plain
+    steps' routes of their dtype by :func:`check_routes`."""
     import numpy as np
     import torch
 
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import map_tree
     from repro_torch.serve.engine import Engine, ServeConfig
 
     eng = Engine(params, cfg, ServeConfig(max_batch=8, max_len=1024, prefill_chunk=128,
@@ -745,42 +852,75 @@ def run_decode_end_to_end(cfg, params):
         eng.step()
     tokens = torch.tensor([r.out_tokens[-1] for r in eng.active], device="cuda")
     lengths = torch.tensor(eng.lengths, device="cuda")
+    base = eng.cache
+    del eng
 
+    logits, free, ref = {}, {}, None
     for dtype in (torch.float32, torch.bfloat16):
-        p = map_tree(lambda t: t.to(torch.float32) if dtype == torch.float32 else t, params)
+        p = fp32_params(params) if dtype == torch.float32 else params
         c_cfg = cfg.with_overrides(dtype=dtype)
 
-        def cache():
-            return {n: {k: t.to(dtype, copy=True) for k, t in blk.items()}
-                    for n, blk in eng.cache.items()}
+        def step(mode, replay):
+            cache = {n: {k: t.to(dtype, copy=True) for k, t in blk.items()}
+                     for n, blk in base.items()}
+            with M.record_routes() as routes, held_to(replay):
+                lg, _ = T.decode_step(p, cache, c_cfg, tokens=tokens, lengths=lengths,
+                                      kernels=mode)
+            return lg, routes
 
-        got, _ = T.decode_step(p, cache(), c_cfg, tokens=tokens, lengths=lengths, kernels="cuda")
-        want, _ = T.decode_step(p, cache(), c_cfg, tokens=tokens, lengths=lengths,
-                                kernels="plain")
+        for mode in ("plain", "cuda"):
+            if ref is None:  # fp32 plain: the routes every other step is held to
+                logits[mode, dtype], ref = step(mode, None)
+                free[mode, dtype] = ref
+                continue
+            logits[mode, dtype] = step(mode, ref)[0]
+            if ref:  # a MoE model: the same step routing for itself
+                free[mode, dtype] = step(mode, None)[1]
         torch.cuda.synchronize()
+        del p
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = logits["cuda", dtype], logits["plain", dtype]
+        label = f"end-to-end decode_step kernels vs plain, {dtype}"
+        note = ""
+        if ref:
+            parted, differ, total, worst = check_routes(
+                label, free["cuda", dtype], free["plain", dtype], 8, dtype)
+            note = (f"; routes held to the fp32 plain step's ({len(ref)} MoE layers); routing "
+                    f"for itself the kernel step's routes equal the plain step's in "
+                    f"{total - differ}/{total} (token, layer) decisions, rows parted at a "
+                    f"near-tie {parted.nonzero().flatten().tolist()}, worst router-logit "
+                    f"distance at a first difference {worst:.3f} of the tolerance")
         top = want.abs().amax(dim=-1, keepdim=True)
-        tol = 8 * bf16_ulp(top) if dtype == torch.bfloat16 else 1e-4 * top
+        if dtype == torch.float32:
+            tol = 1e-4 * top
+        elif ref:
+            drift = (want - logits["plain", torch.float32]).abs().amax(dim=-1, keepdim=True)
+            tol = 2 * drift
+            note += (f"; bf16 kernels vs fp32 plain: "
+                     f"{((got - logits['plain', torch.float32]).abs().amax(-1, keepdim=True) / drift).max().item():.3f}"
+                     f" x the bf16 plain step's own drift")
+        else:
+            tol = 8 * bf16_ulp(top)
         err = (got - want).abs()
         worst = (err / tol).max().item()
         top2 = want.topk(2, dim=-1).values
         decided = (top2[:, 0] - top2[:, 1]) > 2 * tol.squeeze(-1)
         same = got.argmax(-1) == want.argmax(-1)
-        print(f"end-to-end decode_step kernels vs plain, {dtype} (B=8, lengths "
-              f"{lengths.tolist()}): max_abs_err={err.max().item():.3e} worst/allowed="
-              f"{worst:.3f}; greedy tokens equal in {int(same.sum())}/8 rows, "
-              f"{int(decided.sum())} rows with a decided top-1", flush=True)
+        print(f"{label} (B=8, lengths {lengths.tolist()}): max_abs_err={err.max().item():.3e} "
+              f"worst/allowed={worst:.3f}; greedy tokens equal in {int(same.sum())}/8 rows, "
+              f"{int(decided.sum())} rows with a decided top-1{note}", flush=True)
         if worst > 1:
             fail(f"end-to-end {dtype} logits with the kernels disagree with the plain path")
         if not bool(same[decided].all()):
             fail(f"end-to-end {dtype} greedy tokens differ where the plain top-1 is decided")
-        del p
 
 
 def run_prefill_end_to_end(cfg, params):
     """One prefill chunk of 128 tokens at ``pos = 128`` (4 prompts whose
     first chunk is already in the cache), run with ``attn_impl="flash"``
     (the kernel) and ``"dense"`` on copies of the same cache, in fp32
-    (params and cache upcast) and in bf16 (as served).
+    (cache upcast, params one layer group at a time: :func:`fp32_params`)
+    and in bf16 (as served).
 
     fp32: the kernel and the plain path differ in the order of fp32 sums;
     allowed 1e-4 of each row's largest |logit|, and the greedy tokens
@@ -790,38 +930,63 @@ def run_prefill_end_to_end(cfg, params):
     and the fp32 dense logits (what serving in bf16 moves them), two bf16
     paths that each lie within D of the fp32 result lie within 2 D of
     each other: allowed 2 D.  Greedy tokens must agree wherever the dense
-    top-1 beats its top-2 by more than twice the allowance."""
+    top-1 beats its top-2 by more than twice the allowance.  A MoE model
+    runs every path but the fp32 dense one with that path's routes
+    imposed (``moe.replay_routes``), so that D and the errors measure
+    numerics; the flash paths, routing for themselves, are held to the
+    dense paths' routes of their dtype by :func:`check_routes`."""
     import numpy as np
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import map_tree
 
     b, c, pos = 4, 128, 128
     rng = np.random.default_rng(2)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, pos + c)), device="cuda")
     base = T.init_cache(cfg, b, 1024, device="cuda")
     T.prefill_step(params, base, cfg, tokens=toks[:, :pos], pos=0)
-    logits = {}
+    logits, free, ref = {}, {}, None
     for dtype in (torch.float32, torch.bfloat16):
-        p = map_tree(lambda t: t.to(torch.float32) if dtype == torch.float32 else t, params)
+        p = fp32_params(params) if dtype == torch.float32 else params
         c_cfg = cfg.with_overrides(dtype=dtype)
-        for impl in ("flash", "dense"):
+
+        def prefill(impl, replay):
             cache = {n: {k: t.to(dtype, copy=True) for k, t in blk.items()}
                      for n, blk in base.items()}
             K.reset_launches()
-            logits[impl, dtype], _ = T.prefill_step(p, cache, c_cfg, tokens=toks[:, pos:],
-                                                    pos=pos, attn_impl=impl)
+            with M.record_routes() as routes, held_to(replay):
+                lg, _ = T.prefill_step(p, cache, c_cfg, tokens=toks[:, pos:], pos=pos,
+                                       attn_impl=impl)
             torch.cuda.synchronize()
             want = cfg.num_layers if impl == "flash" else 0
             if K.LAUNCHES["attention"] != want:
                 fail(f"prefill_step attn_impl={impl} launched the flash kernel "
                      f"{K.LAUNCHES['attention']} times, expected {want}")
-            del cache
+            return lg, routes
+
+        for impl in ("dense", "flash"):
+            if ref is None:  # fp32 dense: the routes every other path is held to
+                logits[impl, dtype], ref = prefill(impl, None)
+                free[impl, dtype] = ref
+                continue
+            logits[impl, dtype] = prefill(impl, ref)[0]
+            if ref:  # a MoE model: the same path routing for itself
+                free[impl, dtype] = prefill(impl, None)[1]
         del p
     for dtype in (torch.float32, torch.bfloat16):
         got, want = logits["flash", dtype], logits["dense", dtype]
+        label = f"end-to-end prefill_step flash vs dense, {dtype}"
+        note = ""
+        if ref:
+            parted, differ, total, worst = check_routes(
+                label, free["flash", dtype], free["dense", dtype], b, dtype)
+            note = (f"; routes held to the fp32 dense path's; routing for itself the flash "
+                    f"path's routes equal the dense path's in {total - differ}/{total} "
+                    f"(token, layer) decisions, rows parted at a near-tie "
+                    f"{parted.nonzero().flatten().tolist()}, worst router-logit distance at a "
+                    f"first difference {worst:.3f} of the tolerance")
         if dtype == torch.float32:
             tol = 1e-4 * want.abs().amax(dim=-1, keepdim=True)
         else:
@@ -838,10 +1003,10 @@ def run_prefill_end_to_end(cfg, params):
         if dtype == torch.float32:
             decided = torch.ones_like(decided)
         same = got.argmax(-1) == want.argmax(-1)
-        print(f"end-to-end prefill_step flash vs dense, {dtype} (B={b}, chunk {c} at pos {pos}): "
-              f"max_abs_err={err.max().item():.3e} worst/allowed={worst:.3f} (allowed per row "
+        print(f"{label} (B={b}, chunk {c} at pos {pos}): max_abs_err={err.max().item():.3e} "
+              f"worst/allowed={worst:.3f} (allowed per row "
               f"{[round(x, 5) for x in tol.squeeze(-1).tolist()]}); greedy tokens equal in "
-              f"{int(same.sum())}/{b} rows, {int(decided.sum())} compared", flush=True)
+              f"{int(same.sum())}/{b} rows, {int(decided.sum())} compared{note}", flush=True)
         if worst > 1:
             fail(f"end-to-end prefill {dtype}: flash logits disagree with the dense path")
         if not bool(same[decided].all()):
@@ -1019,12 +1184,13 @@ def count_prefills(eng, prefills) -> None:
 
 def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overlap=False,
                       **pipe):
-    """Serve the 12 requests through ``StreamEngine`` (OLMo-1B "flash",
+    """Serve the 12 requests through ``StreamEngine`` ("flash",
     ``kernels="cuda"``); every round's ``collect`` under
     :class:`no_host_sync`.  The launch counters, zeroed just before the
     run and read just after, must show decode attention once per decoded
-    item and layer, the emit once per emitted item and flash attention
-    once per prefill call and layer; each round's peak memory must stay
+    item and layer, the emit once per emitted item, flash attention once
+    per prefill call and layer and, for an rmsnorm model, RMSNorm twice
+    per item or prefill call and layer; each round's peak memory must stay
     below the memory allocated before it plus the round's admission
     payload plus one cell's cache shard (no round copies the cache).
     With ``overlap`` (a Future run), events around every unit give the
@@ -1063,8 +1229,10 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
     if bad:
         fail(f"stream engine {label}: tokens outside [0, {cfg.vocab_size}): {bad[:5]}")
     items = eng.rounds * pcfg.round_steps * pcfg.microbatches
+    # an rmsnorm model's two block pre-norms a layer, per item and prefill call
+    norms = 2 * cfg.num_layers * (items + prefills[0]) if cfg.norm == "rmsnorm" else 0
     want = dict(NO_LAUNCHES, decode_attention=items * cfg.num_layers, emit_norm_logits=items,
-                attention=prefills[0] * cfg.num_layers)
+                attention=prefills[0] * cfg.num_layers, rmsnorm=norms)
     if launches != want:
         fail(f"stream engine {label}: launch counts {launches}, expected {want} for {items} "
              f"items and {prefills[0]} prefill calls")
@@ -1078,7 +1246,7 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
           f"most {worst:.3f} of the allowed (payload + one shard of {shard} bytes); launches "
           f"{launches}", flush=True)
     if overlap:
-        print_overlap(units, f"stream engine {label[0]}", smi)
+        print_overlap(units, f"stream engine {label.split(':')[0]}", smi)
     return [r.out_tokens for r in reqs], launches
 
 
@@ -1683,6 +1851,173 @@ def run_stream_phase(smi: str) -> None:
           "matmuls there equals the direct computation bitwise (no host sync)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Moonlight phase: Mixture-of-Experts serving at full width and depth
+# ---------------------------------------------------------------------------
+
+MOONLIGHT_PARAMS = 28_888_467_456  # the JAX package's model_layout
+CARD_BYTES = 80e9  # an H100's device memory, as its data sheet gives it
+
+
+def run_moe_apply(cfg, params, smi) -> None:
+    """Layer 0's MoE block at full width on 8 tokens (a decode step's
+    rows) and on 128 (a prefill chunk): 20 calls under
+    :class:`no_host_sync` give the same bits as a first call (the combine
+    adds each token's k contributions in a fixed order), and one call's
+    device time stands beside the least time for its bytes: the dense
+    (E, C, d) dispatch reads every expert's weights."""
+    import torch
+
+    from repro_torch import pytree as P
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    p = T._group(params["blocks"], 0)["block0"]["moe"]
+    wbytes = sum(t.numel() * t.element_size() for t in P.leaves(p))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    e, f, d = cfg.moe.num_experts, cfg.moe.d_ff_expert, cfg.d_model
+    fs = f * cfg.moe.num_shared_experts
+    for tokens in (8, 128):
+        x = torch.randn((1, tokens, d), generator=gen, device="cuda").to(cfg.dtype)
+        first, _ = M.moe_apply(p, x, cfg.moe)
+        with no_host_sync():
+            outs = [M.moe_apply(p, x, cfg.moe)[0] for _ in range(20)]
+        torch.cuda.synchronize()
+        same = sum(torch.equal(o, first) for o in outs)
+        if same != 20 or not bool(torch.isfinite(first).all()):
+            fail(f"moe_apply on {tokens} tokens: {same}/20 repeated calls bitwise equal")
+        c = M.expert_capacity(tokens, cfg.moe)
+        ms = device_ms([lambda: M.moe_apply(p, x, cfg.moe)])
+        host = eager_ms(lambda: M.moe_apply(p, x, cfg.moe))
+        ops = 2 * 3 * (e * c * d * f + tokens * d * fs)
+        bms, by = bound_ms(wbytes + 2 * x.numel() * x.element_size(), ops, cfg.dtype)
+        print(f"moe_apply {cfg.name} layer 0 ({smi}): {tokens} tokens, {e} experts top-"
+              f"{cfg.moe.top_k}, capacity {c}, {cfg.dtype}: 20 calls bitwise equal, no host "
+              f"sync; device {ms:.4f} ms (eager call {host:.4f} ms), bound {bms:.4f} ms ({by}, "
+              f"{wbytes} bytes of weights; bound/device {bms / ms:.3f})", flush=True)
+
+
+def run_step_times(cfg, params, smi) -> None:
+    """A decode step at B = 8 (rows at lengths 17-600) and a 128-token
+    prefill call at ``pos = 128``, each captured once into a CUDA graph:
+    the device time of the step without the host's launch cost (replays
+    between CUDA events), beside the step issued eagerly (host clock to
+    a synchronise) and the least time for the bytes of weights it reads."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(5)
+    cache = T.init_cache(cfg, 8, 1024, device="cuda")
+    tokens = torch.randint(1, cfg.vocab_size, (8,), generator=rng, device="cuda")
+    lengths = torch.tensor(PROMPT_LENS[:8], dtype=torch.int32, device="cuda")
+    chunk = torch.randint(1, cfg.vocab_size, (1, 128), generator=rng, device="cuda")
+    single = T.init_cache(cfg, 1, 1024, device="cuda")
+    wbytes = tree_bytes(params)
+    for what, fn in (
+            ("decode step (B=8)", lambda: T.decode_step(params, cache, cfg, tokens=tokens,
+                                                        lengths=lengths)),
+            ("prefill call (128 tokens at pos 128)",
+             lambda: T.prefill_step(params, single, cfg, tokens=chunk, pos=128,
+                                    attn_impl="flash"))):
+        dev = device_ms([fn], reps=5)
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t) / 5 * 1e3
+        bms = wbytes / HBM_BYTES_PER_S * 1e3
+        print(f"moonlight {what} ({smi}): device {dev:.2f} ms (one CUDA graph replayed), "
+              f"eager {host:.2f} ms (host clock, synchronised); the {wbytes} bytes of weights "
+              f"read once {bms:.2f} ms: device/eager {dev / host:.3f}", flush=True)
+    del cache, single
+
+
+def run_moonlight(smi) -> dict:
+    """Full-width, full-depth Moonlight-16B-A3B (48 layers, 64 experts
+    top-6 + 2 shared, V 163840; random weights from seed 0): the build's
+    peak memory; the 12 requests through the Engine ("flash",
+    ``kernels="cuda"``) with exact launch counts; the decode step and
+    the prefill chunk against the plain path, routes included;
+    ``moe_apply`` repeatable; the StreamEngine under Lazy (4 cells, 1
+    microbatch: the Engine's tokens; 8 cells, 4 microbatches) and Future
+    (4 stages, gpipe, 8 cells, 4 microbatches: the Lazy run's tokens).
+    Returns the launch counts summed over the served runs."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+
+    cfg = get_config("moonshot-v1-16b-a3b").with_overrides(kernels="cuda")
+    layout = T.model_layout(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.Transformer(cfg, init_params(layout, seed=0, device="cuda")).params
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    count, nbytes = param_count(layout), tree_bytes(params)
+    cache = sum(m.numel() * m.element_size()
+                for blk in T.cache_layout(cfg, 8, 1024).values() for m in blk.values())
+    print(f"moonlight build ({smi}): {cfg.name}, {cfg.num_layers} layers, {count} parameters, "
+          f"{nbytes} bytes of weights, peak memory during the build {peak} bytes (cache of 8 x "
+          f"1024 rows: {cache} bytes more), in {build:.1f} s", flush=True)
+    if count != MOONLIGHT_PARAMS:
+        fail(f"moonlight has {count} parameters, the JAX layout {MOONLIGHT_PARAMS}")
+    if peak + cache > CARD_BYTES:
+        fail(f"moonlight's build peaks at {peak} bytes: no room for its {cache}-byte cache")
+
+    layers = cfg.num_layers
+    total = dict(NO_LAUNCHES)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # per layer: two RMSNorm pre-norms and one attention a call; the emit
+    # kernel (final norm and head) once a decode step; prefill's final
+    # norm and head are plain
+    engine_tokens, launches = run_engine(
+        cfg, params, "moonlight attn_impl=flash kernels=cuda", prefill_chunk=128,
+        attn_impl="flash",
+        want=lambda steps, chunks: dict(
+            NO_LAUNCHES, decode_attention=steps * layers, emit_norm_logits=steps,
+            attention=chunks * layers, rmsnorm=2 * (steps + chunks) * layers))
+    add(launches)
+    run_step_times(cfg, params, smi)
+    run_decode_end_to_end(cfg, params)
+    run_prefill_end_to_end(cfg, params)
+    run_moe_apply(cfg, params, smi)
+
+    n = sum(len(x) for x in engine_tokens)
+    a, launches = run_stream_engine(cfg, params, "moonlight a: Lazy, 4 cells, 1 microbatch",
+                                    smi, num_cells=4, microbatches=1, round_steps=8,
+                                    admit_per_round=4)
+    add(launches)
+    if a != engine_tokens:
+        fail("moonlight stream engine a: tokens differ from the Engine's")
+    print(f"moonlight stream engine a: tokens identical to the Engine's ({n}/{n})", flush=True)
+    pipe = dict(num_cells=8, microbatches=4)
+    b, launches = run_stream_engine(cfg, params, "moonlight b: Lazy, 8 cells, 4 microbatches",
+                                    smi, **pipe)
+    add(launches)
+    c, launches = run_stream_engine(cfg, params, "moonlight c: Future, 4 stages, gpipe", smi,
+                                    stages=4, schedule="gpipe", overlap=True, **pipe)
+    add(launches)
+    if c != b:
+        fail("moonlight stream engine c: tokens differ from the Lazy run b's")
+    print("moonlight stream engine c: tokens identical to b's", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1791,7 +2126,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 7. The paper's Stream programs under the Lazy and Future evaluators on the card
+    # 7. Moonlight-16B-A3B: Mixture-of-Experts serving at full width and depth
+    moon = run_moonlight(smi)
+    for name, op in (("decode_attention", "decode_attention"),
+                     ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention"),
+                     ("rmsnorm", "rmsnorm")):
+        launches[name] += moon[op]
+
+    # 8. The paper's Stream programs under the Lazy and Future evaluators on the card
     run_stream_phase(smi)
 
     source = {

@@ -20,9 +20,14 @@ CUDA kernels on a card, the plain PyTorch ops on the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --device cpu --requests 8 --watchdog-ms 30000 --chaos raise@2
 
+    # a Mixture-of-Experts model (also llama4-maverick-400b-a17b and the
+    # hybrid jamba-1.5-large-398b; full width only where it fits the card)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --smoke --device cpu --requests 4
+
 ``main(argv)`` returns the finished requests.  Archs the port cannot
-serve yet (MoE, cross-attention, embedding inputs: ROADMAP A9) exit with
-a message.
+serve yet (cross-attention, embedding inputs: ROADMAP A9) exit with a
+message.
 """
 from __future__ import annotations
 
@@ -130,7 +135,7 @@ def main(argv=None):
     cfg = cfg.with_overrides(kernels=args.kernels)
     try:
         layout = T.model_layout(cfg)
-    except NotImplementedError as e:  # MoE, cross-attention, embeddings input
+    except NotImplementedError as e:  # cross-attention, embeddings input
         raise SystemExit(f"cannot serve {cfg.name}: {e}") from e
     params = init_params(layout, seed=args.seed, device=args.device)
     print(f"arch={cfg.name} params={param_count(layout)/1e6:.1f}M device={args.device}")

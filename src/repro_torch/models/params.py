@@ -65,6 +65,27 @@ def _init_scale(spec: ParamSpec) -> float:
     return spec.init_scale  # normal
 
 
+# Elements of the largest fp32 draw: a leaf above it is drawn one slice
+# of its leading axis at a time (an expert stack of a full-width MoE
+# model, 8.9e9 elements, would otherwise need a 35 GB fp32 temporary).
+DRAW_LIMIT = 1 << 30
+
+
+def _randn(shape, gen, scale, dtype, device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
+    return x.to(dtype)
+
+
+def _fill_randn(out: torch.Tensor, gen, scale) -> None:
+    """Fill ``out`` slice by slice of its leading axis, each slice drawn
+    as one leaf of at most :data:`DRAW_LIMIT` elements (or sliced again)."""
+    for part in out:
+        if part.numel() > DRAW_LIMIT:
+            _fill_randn(part, gen, scale)
+        else:
+            part.copy_(_randn(part.shape, gen, scale, out.dtype, out.device))
+
+
 def init_params(
     layout: PyTree, seed: int = 0, device: str | torch.device = "cuda"
 ) -> PyTree:
@@ -74,6 +95,9 @@ def init_params(
     Same shapes, dtypes and fan-in scales as the JAX package's
     ``init_params``; the numbers differ (another generator).  Use
     :func:`params_from_numpy` for weights identical to the reference's.
+    A leaf of more than :data:`DRAW_LIMIT` elements is drawn into its
+    result one slice of its leading axis at a time, so that no fp32
+    temporary is larger than a slice.
     """
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -84,10 +108,12 @@ def init_params(
             return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        x = torch.randn(
-            spec.shape, generator=gen, dtype=torch.float32, device=device
-        ) * _init_scale(spec)
-        return x.to(spec.dtype)
+        scale = _init_scale(spec)
+        if int(np.prod(spec.shape)) <= DRAW_LIMIT:
+            return _randn(spec.shape, gen, scale, spec.dtype, device)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        _fill_randn(out, gen, scale)
+        return out
 
     return map_tree(one, layout)
 

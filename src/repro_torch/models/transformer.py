@@ -5,9 +5,11 @@ over ``num_layers / period`` groups, and where the JAX package scans the
 stack this port runs a Python loop over the groups.
 
 Ported so far: blocks of self-attention or Mamba-2 (``models.ssm``),
-each with a dense MLP or none -- dense decoders (olmo-1b, qwen1.5-4b,
-qwen3-32b, internlm2-20b, ...) and pure SSMs (mamba2-1.3b).  MoE and
-cross-attention blocks and embedding inputs raise
+each with a dense MLP, a Mixture-of-Experts MLP (``models.moe``) or
+none -- dense decoders (olmo-1b, qwen1.5-4b, qwen3-32b, internlm2-20b),
+MoE decoders (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b), the
+hybrid jamba-1.5-large-398b and pure SSMs (mamba2-1.3b).
+Cross-attention blocks and embedding inputs raise
 ``NotImplementedError`` (ROADMAP A9).
 
 Step kinds:
@@ -37,11 +39,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import graph as G
 from repro_torch.kernels import get_impl, resolve_mode
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 PyTree = Any
 
 _NOT_PORTED = "is not ported yet (ROADMAP A9: remaining model families)"
+
+_ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_fraction": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -92,8 +97,6 @@ def _check_ported(cfg: ArchConfig, plans: list[BlockPlan]) -> None:
     for plan in plans:
         if plan.mixer not in ("attn", "mamba"):
             raise NotImplementedError(f"{plan.mixer!r} blocks ({cfg.name}) {_NOT_PORTED}")
-        if plan.ffn not in ("dense", "none"):
-            raise NotImplementedError(f"{plan.ffn!r} blocks ({cfg.name}) {_NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +123,10 @@ def model_layout(cfg: ArchConfig) -> PyTree:
             blk["mamba"] = S.ssm_layout(cfg, cfg.ssm, stacked)
         if plan.ffn != "none":
             blk["norm_ffn"] = L.make_norm_layout(cfg.norm, cfg.d_model, stacked)
-            blk["mlp"] = L.mlp_layout(cfg, stacked=stacked)
+            if plan.ffn == "moe":
+                blk["moe"] = M.moe_layout(cfg, cfg.moe, stacked)
+            else:
+                blk["mlp"] = L.mlp_layout(cfg, stacked=stacked)
         blocks[f"block{i}"] = blk
 
     return {
@@ -222,7 +228,7 @@ def _self_attn(
     core (``layers.attention``); ``kernels`` is the resolved mode, which
     for ``"flash"`` picks the CUDA kernel or its plain version.
 
-    Decode (S==1): ``cache_pos`` is (B,) int32 per-sequence write
+    Decode (S==1, ``cache_pos`` a tensor): (B,) int32 per-sequence write
     positions; the new K/V row of each sequence is written in place at
     its position.  ``kernels="cuda"`` reads attention through the fused
     decode-attention kernel (new row substituted on chip, cache read
@@ -230,7 +236,7 @@ def _self_attn(
     the JAX package; ``"plain"`` writes the row first and runs
     ``attn_impl`` over the cache.
 
-    Chunked prefill (S>1): ``cache_pos`` is an int chunk offset; the
+    Chunked prefill (S>=1): ``cache_pos`` is an int chunk offset; the
     chunk is written in place at [pos, pos+S) -- which must lie inside
     the cache (the JAX package's ``dynamic_update_slice`` would clamp
     the offset instead) -- and attends causally to the cache.
@@ -242,7 +248,7 @@ def _self_attn(
         return L.attn_out(params, L.attention(q, k, v, causal=True, **impl)), (k, v)
     s = x.shape[1]
     ck, cv = cache["k"], cache["v"]
-    if s == 1:
+    if torch.is_tensor(cache_pos):  # decode (a one-token prefill chunk has an int pos)
         rows_k = k[:, 0].to(ck.dtype)
         rows_v = v[:, 0].to(cv.dtype)
         if kernels == "cuda":
@@ -290,13 +296,17 @@ def _apply_group(
     cache_pos=None, kv_len=None, collect_kv=False, attn_impl="dense",
     q_chunk=512, kv_chunk=1024, causal_skip=None, kernels="plain",
 ):
-    """Apply one period group.  Returns (x, kv) where kv maps each block
-    to its full-sequence K/V (a Mamba block: its conv and SSD state) when
-    ``collect_kv`` (forward only).
+    """Apply one period group.  Returns (x, kv, aux) where kv maps each
+    block to its full-sequence K/V (a Mamba block: its conv and SSD
+    state) when ``collect_kv`` (forward only), and aux holds the MoE
+    blocks' auxiliary losses averaged over the group's MoE blocks (zeros
+    where it has none).
 
     A Mamba block writes its new conv and SSD state into the group's
     cache view in place, as attention writes its K/V rows."""
     kv_out: dict[str, PyTree] = {}
+    aux = dict(_ZERO_AUX)
+    num_moe = 0
     for i, plan in enumerate(plans):
         name = f"block{i}"
         blk = group_params[name]
@@ -322,16 +332,21 @@ def _apply_group(
         x = x + out
         if plan.ffn != "none":
             h = _norm(cfg, blk.get("norm_ffn"), x, kernels)
-            x = x + L.mlp(blk["mlp"], h)
-    return x, kv_out
+            if plan.ffn == "moe":
+                out, moe_aux = M.moe_apply(blk["moe"], h, cfg.moe)
+                aux = {key: aux[key] + moe_aux[key] for key in aux}
+                num_moe += 1
+            else:
+                out = L.mlp(blk["mlp"], h)
+            x = x + out
+    if num_moe:
+        aux = {key: v / num_moe for key, v in aux.items()}
+    return x, kv_out, aux
 
 
 # ---------------------------------------------------------------------------
 # Model entry points
 # ---------------------------------------------------------------------------
-
-
-_ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_fraction": 0.0}
 
 
 def forward(
@@ -349,6 +364,9 @@ def forward(
     Mamba blocks the SSD and RMSNorm kernels or their plain versions, and
     for an rmsnorm model's block pre-norms the RMSNorm kernel or
     ``layers.rmsnorm``.  The final norm is plain in every mode.
+    ``aux`` holds the MoE auxiliary losses: the mean over layer groups of
+    each group's mean over its MoE blocks, as the reference's scan
+    averages them (zeros for a model without MoE blocks).
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
@@ -357,15 +375,16 @@ def forward(
     x = L.embed_lookup(params["embed"]["embedding"], tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    kvs = []
+    kvs, auxs = [], []
     for g in range(_num_groups(params)):
-        x, kv = _apply_group(
+        x, kv, aux = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
             positions=positions, collect_kv=collect_kv, attn_impl=attn_impl,
             q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
             kernels=mode,
         )
         kvs.append(kv)
+        auxs.append(aux)
     x = _norm(cfg, params.get("final_norm"), x)
     lg = L.logits(params.get("head"), params["embed"], x, cfg)
 
@@ -380,7 +399,8 @@ def forward(
                     pad = t.new_zeros(t.shape[:2] + (cache_pad_to - t.shape[2],) + t.shape[3:])
                     t = torch.cat([t, pad], dim=2)
                 caches[name][key] = t
-    return lg, caches, dict(_ZERO_AUX)
+    aux = {key: sum(a[key] for a in auxs) / len(auxs) for key in _ZERO_AUX}
+    return lg, caches, aux
 
 
 class Transformer(torch.nn.Module):
@@ -404,17 +424,21 @@ class Transformer(torch.nn.Module):
 
 
 def _to_module(tree: dict) -> torch.nn.Module:
-    if any(isinstance(v, dict) for v in tree.values()):
-        return torch.nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
-    return torch.nn.ParameterDict(
-        {k: torch.nn.Parameter(v, requires_grad=False) for k, v in tree.items()}
-    )
+    """A module per dict: its tensors as frozen parameters, its dicts as
+    submodules (a MoE block's dict holds both)."""
+    module = torch.nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            module.add_module(k, _to_module(v))
+        else:
+            module.register_parameter(k, torch.nn.Parameter(v, requires_grad=False))
+    return module
 
 
 def _from_module(module: torch.nn.Module) -> PyTree:
-    if isinstance(module, torch.nn.ParameterDict):
-        return dict(module.items())
-    return {k: _from_module(v) for k, v in module.items()}
+    tree = dict(module.named_parameters(recurse=False))
+    tree.update({k: _from_module(v) for k, v in module.named_children()})
+    return tree
 
 
 def _emit_logits(params, cfg: ArchConfig, x, kernels: str = "plain"):
@@ -467,7 +491,7 @@ def decode_step(
     positions = lengths[:, None]
     kv_len = (lengths + 1)[:, None]  # (B,1) valid kv after the write
     for g in range(_num_groups(params)):
-        x, _ = _apply_group(
+        x, _, _ = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
             positions=positions, group_cache=_group(caches, g),
             cache_pos=lengths, kv_len=kv_len, attn_impl=attn_impl,
@@ -522,7 +546,7 @@ def prefill_step(
     full_cover = pos == 0 and _cache_seq_len(caches) == s
     kv_len = None if full_cover else pos + s
     for g in range(_num_groups(params)):
-        x, _ = _apply_group(
+        x, _, _ = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
             positions=positions, group_cache=_group(caches, g),
             cache_pos=pos, kv_len=kv_len, attn_impl=attn_impl,
@@ -671,7 +695,7 @@ def make_decode_cell(
         positions, kv_len = lengths[:, None], (lengths + 1)[:, None]
         x = item["x"]
         for g in range(_num_groups(const)):
-            x, _ = _apply_group(
+            x, _, _ = _apply_group(
                 _group(const["blocks"], g), x, cfg, plans,
                 positions=positions, group_cache=_group(rows, g),
                 cache_pos=lengths, kv_len=kv_len, attn_impl=attn_impl,

@@ -1103,3 +1103,97 @@ def test_numerics_scan_finds_one_nonfinite_element_on_the_card(bad):
         sup._check_numerics()
     sup.restore(pristine)
     sup._check_numerics()
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts on the card: routes, repeatability, no host sync
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(d, e, k, f, shared, dtype, tokens, seed=0):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import init_params
+
+    moe = MoEConfig(num_experts=e, top_k=k, d_ff_expert=f, num_shared_experts=shared)
+    cfg = get_config("moonshot-v1-16b-a3b").with_overrides(d_model=d, moe=moe, dtype=dtype)
+    params = init_params(M.moe_layout(cfg, moe), seed=seed, device="cuda")
+    x = torch.randn((1, tokens, d), generator=_gen(seed + 1), device="cuda").to(dtype)
+    return moe, params, x
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("tokens", [8, 131])
+def test_moe_apply_on_the_card_matches_the_cpu(dtype, tokens):
+    """The same function on CPU copies of the inputs: routes, ranks and
+    keep equal; y within 1e-5 (fp32) or 4 bf16 ulps of each row's
+    largest |y| (bf16: a rounding moved by an fp32 sum in another
+    order, as against the JAX package in tests/test_torch_moe.py)."""
+    from repro_torch.models import moe as M
+
+    moe, params, x = _moe_case(512, 16, 4, 256, 2, dtype, tokens)
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else {a: b.cpu() for a, b in v.items()})
+           for k, v in params.items()}
+    with M.record_routes() as routes:
+        got, aux = M.moe_apply(params, x, moe)
+        want, aux_cpu = M.moe_apply(cpu, x.cpu(), moe)
+    for key in ("expert_ids", "rank", "keep"):
+        assert torch.equal(routes[0][key].cpu(), routes[1][key]), key
+    got, want = got.cpu().float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        top = want.abs().amax(dim=-1, keepdim=True)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        assert bool(((got - want).abs() <= 4 * ulp).all())
+    for key in aux:
+        torch.testing.assert_close(aux[key].cpu(), aux_cpu[key], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("tokens", [8, 128])
+def test_moe_apply_is_repeatable_and_never_syncs(tokens):
+    """Moonlight's widths (64 experts, top-6, 2 shared): 20 calls give the
+    same bits (the combine adds in a fixed order), under the sync guard."""
+    from repro_torch.models import moe as M
+
+    moe, params, x = _moe_case(2048, 64, 6, 1408, 2, torch.bfloat16, tokens)
+    first, _ = M.moe_apply(params, x, moe)
+    with _NoHostSync():
+        outs = [M.moe_apply(params, x, moe)[0] for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+
+
+def test_moonlight_layer_decode_routes_equal_the_plain_path():
+    """One full-width Moonlight layer (vocab cut to 4096), fp32: a decode
+    step with the kernels and with kernels="plain" on copies of a
+    prefilled cache routes every row alike and gives the same logits."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("moonshot-v1-16b-a3b").with_overrides(num_layers=1, vocab_size=4096,
+                                                            dtype=torch.float32)
+    params = init_params(T.model_layout(cfg), seed=0, device="cuda")
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(1, 4096, size=(8, 33)), device="cuda")
+    base = T.init_cache(cfg, 8, 64, device="cuda")
+    T.prefill_step(params, base, cfg, tokens=toks[:, :32], pos=0, kernels="plain")
+    lengths = torch.full((8,), 32, dtype=torch.int32, device="cuda")
+    runs = []
+    for mode in ("cuda", "plain"):
+        cache = {n: {k: t.clone() for k, t in blk.items()} for n, blk in base.items()}
+        K.reset_launches()
+        with M.record_routes() as routes:
+            logits, _ = T.decode_step(params, cache, cfg, tokens=toks[:, 32], lengths=lengths,
+                                      kernels=mode)
+        runs.append((logits, routes, dict(K.LAUNCHES)))
+    (got, r_cuda, launched), (want, r_plain, _) = runs
+    assert launched == {"decode_attention": 1, "emit_norm_logits": 1, "attention": 0,
+                        "ssd": 0, "rmsnorm": 2}
+    for key in ("expert_ids", "keep"):
+        assert torch.equal(r_cuda[0][key], r_plain[0][key])
+    top = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-4 * top).all())

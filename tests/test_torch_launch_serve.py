@@ -6,8 +6,9 @@ The sequential engine and the StreamEngine under the Future evaluator
 smoke config with its dtype set to fp32 here: the CLI keeps the
 reference's flags, which have none for the dtype); ``--chaos raise@1``
 gives the fault-free tokens with no request lost.  Also: the flags the
-port changes (``--device``, ``--kernels``), the archs it cannot serve,
-the schedule suggestion and ``param_count`` against the JAX package's.
+port changes (``--device``, ``--kernels``), the MoE archs at smoke size,
+the archs it cannot serve, the schedule suggestion and ``param_count``
+against the JAX package's.
 """
 import ast
 import re
@@ -104,8 +105,28 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
         serve.main(argv)
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "llama-3.2-vision-90b",
-                                  "musicgen-medium", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch,layers", [("jamba-1.5-large-398b", 16),
+                                         ("llama4-maverick-400b-a17b", 4),
+                                         ("moonshot-v1-16b-a3b", 2)])
+def test_moe_archs_serve_at_smoke_size(arch, layers, capsys):
+    """The MoE families serve through the CLI, sequential and over two
+    Future stages, with the same greedy tokens at fp32 (``layers``: two
+    layer groups, one a cell)."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--num-layers", str(layers),
+            "--requests", "3", "--max-new", "3", "--max-batch", "2", "--max-len", "32",
+            "--prompt-len", "9", "--prefill-chunk", "4"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve, "smoke_config",
+                   lambda cfg: smoke_config(cfg).with_overrides(dtype=torch.float32))
+        seq = _tokens(serve.main(argv))
+        stream = _tokens(serve.main(argv + ["--engine", "stream", "--devices", "2",
+                                            "--cells", "2", "--microbatches", "2"]))
+    assert len(seq) == 3 and all(len(t) == 3 for t in seq.values())
+    assert stream == seq
+    assert f"arch={arch}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-medium"])
 def test_unported_archs_exit_naming_the_roadmap(arch):
     with pytest.raises(SystemExit, match="ROADMAP A9"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
@@ -119,7 +140,6 @@ def test_bad_chaos_spec_exits():
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in (
-    "jamba-1.5-large-398b", "llama4-maverick-400b-a17b", "moonshot-v1-16b-a3b",
     "llama-3.2-vision-90b", "musicgen-medium")])
 def test_param_count_equals_jax(arch):
     got = param_count(T.model_layout(get_config(arch)))
