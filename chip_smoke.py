@@ -9,7 +9,11 @@
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card at full width, in bf16 and fp32, with its time, the plain
    version's time, one library call's time (a yardstick the port never
-   calls) and the least time the card could take (``bound_ms``).
+   calls) and the least time the card could take (``bound_ms``).  The
+   emit runs OLMo-1B's, Mamba2-1.3B's and Moonlight-16B-A3B's heads in
+   both dtypes and the zoo's other untied heads (qwen3-32b,
+   llama-3.2-vision, musicgen) in bf16; its ``kernels`` entry carries
+   Moonlight's untied case under ``untied``.
 3. Engine phase: full-width OLMo-1B (random weights from a seed) served
    through ``Engine``: 12 ragged requests through 8 slots, once with
    ``attn_impl="dense"`` and once with ``"flash"``; the launch counters,
@@ -290,60 +294,87 @@ def emit_errors(got, want, dtype):
     return err, bool((err <= allowed).all()), (err / allowed).max().item()
 
 
-def run_emit(gen, results):
+# (norm, tied, V, d, dtypes) of the emit phase: OLMo-1B's own case
+# (layernorm, tied, V 50304) first, as the ``kernels`` record's; Mamba2-
+# 1.3B's (rmsnorm, tied, V 50280) second; Moonlight-16B-A3B's (rmsnorm,
+# untied, V 163840), the record's ``untied`` entry; then the zoo's other
+# untied heads in bf16: qwen3-32b's, llama-3.2-vision's (d 8192) and
+# musicgen's (V 2048: 32 groups of 64 columns, 32 SMs busy).
+EMIT_CASES = (
+    *[(norm, tied, v, 2048, ("bfloat16", "float32")) for norm, tied, v in (
+        ("layernorm_nonparam", True, 50304), ("rmsnorm", True, 50280),
+        ("layernorm_nonparam", False, 50304), ("rmsnorm", True, 50304),
+        ("rmsnorm", False, 50304), ("rmsnorm", False, 163840))],
+    ("rmsnorm", False, 151936, 5120, ("bfloat16",)),
+    ("rmsnorm", False, 128256, 8192, ("bfloat16",)),
+    ("rmsnorm", False, 2048, 1536, ("bfloat16",)),
+)
+MOONLIGHT_EMIT = ("rmsnorm", False, 163840, 2048)
+
+
+def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dict:
+    """One emit case on the card: ``kernel`` (a checkout's
+    ``emit_norm_logits``) against ``plain`` on the same inputs, its device
+    time, the plain version's, norm + matmul's (the library yardstick) and
+    the bytes bound; prints one line and fails on disagreement."""
     import torch
     import torch.nn.functional as F
+
+    x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    shape, std = ((v, d), 0.02) if tied else ((d, v), d**-0.5)
+    w = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+    scale = (torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1.0
+             if norm == "rmsnorm" else None)
+    kw = dict(norm=norm, scale=scale, eps=eps, tied=tied)
+    got = kernel(x, w, **kw)
+    want = plain(x, w, **kw)
+    torch.cuda.synchronize()
+    err, ok, worst = emit_errors(got, want, dtype)
+    rel = (err / want.abs().clamp_min(1e-6)).max().item()
+    # every call finds its head cold: a head smaller than the L2 is timed
+    # over copies that together exceed it twice
+    heads = [w] + [w.clone() for _ in range(int(2 * L2_BYTES // w.nbytes))]
+    ms = device_ms([lambda h=h: kernel(x, h, **kw) for h in heads])
+    plain_ms = device_ms([lambda h=h: plain(x, h, **kw) for h in heads])
+    host_ms = eager_ms(lambda: kernel(x, w, **kw))
+
+    def library(h):
+        xn = (F.layer_norm(x, (d,), eps=eps) if norm == "layernorm_nonparam"
+              else F.rms_norm(x.float(), (d,), scale, eps=eps).to(dtype))
+        return xn @ (h.T if tied else h)
+
+    lib_ms = device_ms([lambda h=h: library(h) for h in heads])
+    nbytes = x.element_size() * (b * d + v * d) + 4 * b * v + (4 * d if scale is not None else 0)
+    bms, by = bound_ms(nbytes, 2 * b * d * v, dtype)
+    print(f"emit_norm_logits {norm} tied={tied} B={b} d={d} V={v} {dtype}: "
+          f"max_abs_err={err.max().item():.3e} max_rel_err={rel:.3e} "
+          f"worst/allowed={worst:.3f} {'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms "
+          f"(eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, norm+matmul "
+          f"{lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f}), bound {bms:.4f} ms ({by}, "
+          f"{bms / ms:.3f} of it)", flush=True)
+    if not ok:
+        fail(f"emit_norm_logits {norm} tied={tied} V={v} d={d} {dtype} disagrees with its "
+             f"plain version")
+    return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def run_emit(gen, results):
+    import torch
 
     from repro_torch.kernels.emit_norm_logits.ops import emit_norm_logits
     from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
 
-    b, d, eps = 8, 2048, 1e-5
-    main = None
-    # OLMo-1B's own case (layernorm, tied, V 50304) first; Mamba2-1.3B's
-    # (rmsnorm, tied, V 50280) second; Moonlight-16B-A3B's (rmsnorm,
-    # untied, V 163840) last
-    for norm, tied, v in (("layernorm_nonparam", True, 50304), ("rmsnorm", True, 50280),
-                          ("layernorm_nonparam", False, 50304), ("rmsnorm", True, 50304),
-                          ("rmsnorm", False, 50304), ("rmsnorm", False, 163840)):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
-            shape, std = ((v, d), 0.02) if tied else ((d, v), d**-0.5)
-            w = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
-            scale = (torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1.0
-                     if norm == "rmsnorm" else None)
-            kw = dict(norm=norm, scale=scale, eps=eps, tied=tied)
-            got = emit_norm_logits(x, w, **kw)
-            want = emit_norm_logits_ref(x, w, **kw)
-            torch.cuda.synchronize()
-            err, ok, worst = emit_errors(got, want, dtype)
-            rel = (err / want.abs().clamp_min(1e-6)).max().item()
-            # the head (>= 206 MB) is larger than the L2: one copy stays cold
-            ms = device_ms([lambda: emit_norm_logits(x, w, **kw)])
-            plain_ms = device_ms([lambda: emit_norm_logits_ref(x, w, **kw)])
-            host_ms = eager_ms(lambda: emit_norm_logits(x, w, **kw))
-            wt = w.T if tied else w
-
-            def library():
-                xn = (F.layer_norm(x, (d,), eps=eps) if norm == "layernorm_nonparam"
-                      else F.rms_norm(x.float(), (d,), scale, eps=eps).to(dtype))
-                return xn @ wt
-
-            lib_ms = device_ms([library])
-            nbytes = x.element_size() * (b * d + v * d) + 4 * b * v + (4 * d if scale is not None else 0)
-            bms, by = bound_ms(nbytes, 2 * b * d * v, dtype)
-            print(f"emit_norm_logits {norm} tied={tied} B={b} d={d} V={v} {dtype}: "
-                  f"max_abs_err={err.max().item():.3e} max_rel_err={rel:.3e} "
-                  f"worst/allowed={worst:.3f} {'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms "
-                  f"(eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, norm+matmul "
-                  f"{lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f}), bound {bms:.4f} ms ({by})",
-                  flush=True)
-            if not ok:
-                fail(f"emit_norm_logits {norm} tied={tied} {dtype} disagrees with its plain version")
+    main, untied = None, {}
+    for norm, tied, v, d, dtypes in EMIT_CASES:
+        for name in dtypes:
+            row = emit_case(gen, norm, tied, v, d, getattr(torch, name), emit_norm_logits,
+                            emit_norm_logits_ref)
             if main is None:
-                main = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
-            del x, w
-    results["emit_norm_logits"] = main
+                main = row
+            if (norm, tied, v, d) == MOONLIGHT_EMIT:
+                untied[name] = dict(row, kernel_over_library=row["ms"] / row["library_ms"])
+    results["emit_norm_logits"] = dict(main, untied=untied)
 
 
 # Flash attention: outputs are convex combinations of order-1 values.

@@ -6,6 +6,7 @@ the kernel on the current stream or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -16,9 +17,51 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NORMS = {"rmsnorm": 0, "layernorm_nonparam": 1}
 _ARGTYPES = (
     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-    + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+
+# The untied ring's layout (csrc/emit_norm_logits.cu: Untied<T>, U_*).
+UNTIED_MAX_ROWS = 64      # batch rows a launch: 8 n8 tiles of the mma
+UNTIED_MAX_STAGES = 16
+UNTIED_FIXED = 2048       # alignment slack and the barriers ahead of the ring
+UNTIED_KC = (256, 128, 64, 32)  # rows of d a stage: a TMA box has at most 256
+
+
+def untied_cols(dtype: torch.dtype) -> int:
+    """Vocab columns a group: 256 bytes of each row of the head."""
+    return 256 // dtype.itemsize
+
+
+class UntiedPlan(NamedTuple):
+    rows: int      # batch rows a launch
+    launches: int  # ceil(B / rows), each reading the head once
+    kc: int        # rows of d a stage
+    stages: int
+    smem: int      # bytes of shared memory a block
+
+
+def untied_plan(b: int, d: int, dtype: torch.dtype) -> UntiedPlan:
+    """The untied kernel's ring for ``b`` rows of width ``d``: the fewest
+    launches whose rows of normalised x leave room for two stages, the
+    tallest stage of which two fit, and as many stages as fit, at most 16.
+    Raises with the reason where none fits."""
+    elem = dtype.itemsize
+    if b > UNTIED_MAX_ROWS:
+        raise ValueError(f"B={b}: the untied emit kernel takes at most {UNTIED_MAX_ROWS} rows")
+    ldx = -(-d // 64) * 64 + (8 if elem == 2 else 0)  # a shared row of x, padded
+    heights = sorted({min(kc, -(-d // 32) * 32) for kc in UNTIED_KC}, reverse=True)
+    for launches in range(1, b + 1):
+        rows = -(-b // launches)
+        free = SMEM_LIMIT - UNTIED_FIXED - rows * ldx * elem
+        for kc in heights:
+            stage = kc * untied_cols(dtype) * elem
+            stages = min(UNTIED_MAX_STAGES, max(free, 0) // stage)
+            if stages >= 2:
+                return UntiedPlan(rows, -(-b // rows), kc, stages,
+                                  UNTIED_FIXED + stages * stage + rows * ldx * elem)
+    raise ValueError(f"d={d}: one row of the normalised x ({ldx * elem} bytes) leaves no room "
+                     f"for two stages of the untied emit kernel in {SMEM_LIMIT} bytes")
 
 
 def emit_norm_logits(
@@ -60,17 +103,23 @@ def emit_norm_logits(
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    # the normalised x, its rows padded by 32 elements each, and the fp32
-    # rmsnorm scale, beside 20 KB of the kernels' own (at least two stages
-    # of the tied bf16 ring)
-    if b * (d + 32) * x.element_size() + 4 * d + 20 * 1024 > SMEM_LIMIT:
-        raise ValueError(f"B={b}, d={d}: the normalised x does not fit the kernel's shared memory")
+    if tied:
+        # the normalised x, its rows padded by 32 elements each, and the fp32
+        # rmsnorm scale, beside 20 KB of the kernels' own (at least two stages
+        # of the tied bf16 ring)
+        if b * (d + 32) * x.element_size() + 4 * d + 20 * 1024 > SMEM_LIMIT:
+            raise ValueError(
+                f"B={b}, d={d}: the normalised x does not fit the kernel's shared memory")
+        plan = (0, 0, 0)
+    else:
+        p = untied_plan(b, d, x.dtype)
+        plan = (p.kc, p.stages, p.rows)
     out = torch.empty((b, v), dtype=torch.float32, device=x.device)
     fn = K.kernel_function("emit_norm_logits", "emit_norm_logits", _ARGTYPES)
     code = fn(
         _DTYPES[x.dtype], _NORMS[norm], int(tied),
         x.data_ptr(), w.data_ptr(), scale.data_ptr() if norm == "rmsnorm" else None,
-        out.data_ptr(), b, d, v, float(eps),
+        out.data_ptr(), b, d, v, float(eps), *plan,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     K.check_launch("emit_norm_logits", code)

@@ -189,35 +189,87 @@ def test_decode_attention_twice_and_in_a_graph(dtype):
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm_nonparam"])
 @pytest.mark.parametrize("tied", [False, True])
 @pytest.mark.parametrize("b", [1, 8, 11, 16])
-@pytest.mark.parametrize("v", [64, 1000, 50280, 50288, 50304])
-@pytest.mark.parametrize("d", [256, 2080])
+@pytest.mark.parametrize("v", [64, 1000, 50280, 50288, 50304, 163840])
+@pytest.mark.parametrize("d", [256, 2048, 2080])
 def test_emit_matches_plain(dtype, norm, tied, b, v, d):
-    """V 64: fewer groups of 8 vocab rows than the tied bf16 kernel has
-    blocks; 1000, 50280 and 50288: shares of the vocab that differ by a
-    group between blocks; 50304 and 50280: the two served widths.  d 2080:
-    a row group takes two stages, the second of 32 of d's columns."""
+    """V 64: fewer groups (8 vocab rows tied, 64 columns untied) than the
+    rings have blocks; 1000, 50280 and 50288: shares of the vocab that
+    differ by a group between blocks, and (untied) a last group of 64
+    columns cut short, TMA zero-filling the rest; 50304, 50280 and 163840:
+    the served widths.  d 2080: a row group (tied) takes two stages, the
+    second of 32 of d's columns; untied, the last stage is ragged and its
+    rows past d are zero-filled."""
     _check_emit(dtype, norm, tied, b, v, d)
 
 
+_TIED_TILES = [(17, 256), (33, 256), (48, 256), (64, 256), (17, 2048), (33, 2048), (48, 2048)]
+
+
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm_nonparam"])
-@pytest.mark.parametrize("v", [64, 50280, 50304])
-@pytest.mark.parametrize("b,d", [(17, 256), (33, 256), (48, 256), (64, 256),
-                                 (17, 2048), (33, 2048), (48, 2048)])
-def test_emit_batch_tiles_match_plain(norm, v, b, d):
-    """The tied bf16 kernel past 16 batch rows: two to four 16-row batch
-    tiles, the last one partial except at 64.  At d 2048, 33 and 48 rows
-    leave room only for stages narrower than a row."""
-    _check_emit(torch.bfloat16, norm, True, b, v, d)
+@pytest.mark.parametrize("v", [64, 1000, 50280, 50304, 163840])
+@pytest.mark.parametrize("dtype,tied,b,d", [
+    *[pytest.param(torch.bfloat16, True, b, d, id=f"bf16-tied-{b}-{d}") for b, d in _TIED_TILES],
+    *[pytest.param(dt, False, b, d, id=f"{str(dt)[6:]}-untied-{b}-{d}")
+      for dt in DTYPES for b in (17, 33, 48, 64) for d in (256, 2048, 2080)],
+])
+def test_emit_batch_tiles_match_plain(norm, v, dtype, tied, b, d):
+    """Past 16 batch rows.  The tied bf16 kernel: two to four 16-row batch
+    tiles, the last one partial except at 64; at d 2048, 33 and 48 rows
+    leave room only for stages narrower than a row.  The untied kernel:
+    three to eight n8 tiles (bf16) or rows held (fp32), and where the
+    normalised x does not fit beside two stages (bf16 64 x 2048, fp32
+    33 x 2048 and up) the batch split over launches."""
+    _check_emit(dtype, norm, tied, b, v, d)
 
 
-def _check_emit(dtype, norm, tied, b, v, d):
-    gen = _gen(3)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d,v", [(5120, 151936), (8192, 128256), (1536, 2048)], ids=str)
+def test_emit_untied_zoo_heads_match_plain(dtype, d, v):
+    """The untied heads of the zoo at B 8: qwen3-32b's (and llama4's d),
+    llama-3.2-vision's d 8192 (three stages beside x in bf16; fp32 splits
+    the batch over two launches) and musicgen's V 2048 (32 groups: 32 of
+    the card's SMs busy)."""
+    _check_emit(dtype, "rmsnorm", False, 8, v, d)
+
+
+def test_emit_untied_refuses_what_does_not_fit():
+    x = torch.zeros(65, 1, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 64 rows"):
+        emit_norm_logits(x, torch.zeros(256, 64, device="cuda", dtype=torch.bfloat16),
+                         norm="layernorm_nonparam")
+    x = torch.zeros(1, 1, 120000, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no room"):
+        emit_norm_logits(x, torch.zeros(120000, 64, device="cuda", dtype=torch.bfloat16),
+                         norm="layernorm_nonparam")
+    assert K.LAUNCHES["emit_norm_logits"] == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,d,v", [(8, 2048, 163840), (33, 2080, 50280)], ids=str)
+def test_emit_untied_in_a_graph(dtype, b, d, v):
+    """The untied launch (two launches for fp32 at 33 x 2080) captured in
+    a CUDA graph, replayed on new inputs copied into its static buffers:
+    every replay holds to the plain version."""
+    cases = [_emit_case(_gen(20 + i), dtype, False, b, v, d) for i in range(3)]
+    static = [t.clone() for t in cases[0]]
+    kw = dict(norm="rmsnorm", tied=False)
+    graph, out = _capture(lambda: emit_norm_logits(static[0], static[1], scale=static[2], **kw))
+    for x, w, scale in cases[1:]:
+        for dst, src in zip(static, (x, w, scale)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_emit_close(out, emit_norm_logits_ref(x, w, scale=scale, **kw), dtype)
+
+
+def _emit_case(gen, dtype, tied, b, v, d):
     x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
     w = (torch.randn((v, d) if tied else (d, v), generator=gen, device="cuda") * d**-0.5).to(dtype)
     scale = torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1.0
-    kw = dict(norm=norm, tied=tied, scale=scale if norm == "rmsnorm" else None)
-    got = emit_norm_logits(x, w, **kw)
-    want = emit_norm_logits_ref(x, w, **kw)
+    return x, w, scale
+
+
+def _assert_emit_close(got, want, dtype):
     # bf16: 2 bf16 ulps of the row's largest |logit| (an element of the
     # normalised x may round one ulp apart); fp32: 1e-4 of it.
     top = want.abs().amax(-1, keepdim=True)
@@ -225,6 +277,14 @@ def _check_emit(dtype, norm, tied, b, v, d):
                if dtype == torch.bfloat16 else 1e-4 * top)
     assert ((got - want).abs() <= allowed).all()
     assert torch.equal(got, got.to(dtype).float())  # logits rounded to x's dtype
+
+
+def _check_emit(dtype, norm, tied, b, v, d):
+    x, w, scale = _emit_case(_gen(3), dtype, tied, b, v, d)
+    kw = dict(norm=norm, tied=tied, scale=scale if norm == "rmsnorm" else None)
+    got = emit_norm_logits(x, w, **kw)
+    want = emit_norm_logits_ref(x, w, **kw)
+    _assert_emit_close(got, want, dtype)
     assert K.LAUNCHES["emit_norm_logits"] == 1
 
 

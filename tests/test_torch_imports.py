@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_emit.py"]
     assert len(files) > 15 and PKG / "models" / "ssm.py" in files
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
