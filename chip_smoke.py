@@ -13,7 +13,11 @@
    emit runs OLMo-1B's, Mamba2-1.3B's and Moonlight-16B-A3B's heads in
    both dtypes and the zoo's other untied heads (qwen3-32b,
    llama-3.2-vision, musicgen) in bf16; its ``kernels`` entry carries
-   Moonlight's untied case under ``untied``.
+   Moonlight's untied case under ``untied``.  Flash attention also runs
+   llama-3.2-vision's cross-attention (B 8, Sq 1 and 128, 1601 keys, 64
+   heads over 8 KV heads, non-causal, both dtypes; the Sq 1 bf16 case is
+   its entry's ``cross``) and a musicgen-medium chunk (24 heads of 64);
+   decode attention musicgen's 24 x 64 MHA; RMSNorm d 1536 and 8192.
 3. Engine phase: full-width OLMo-1B (random weights from a seed) served
    through ``Engine``: 12 ragged requests through 8 slots, once with
    ``attn_impl="dense"`` and once with ``"flash"``; the launch counters,
@@ -60,10 +64,31 @@
    plain path's; layer 0's ``moe_apply`` on 8 and on 128 tokens, 20
    calls bitwise equal with no host sync; the StreamEngine, each round
    under the sync guard, Lazy with 4 cells and 1 microbatch (the
-   Engine's tokens), Lazy with 8 cells and 4 microbatches, and Future on
-   4 stage streams (gpipe) with the same cells and microbatches (the
-   Lazy run's tokens).
-8. Stream phase: the paper's two algorithms under the port's
+   Engine's tokens), then, on the first 24 layers, Lazy with 8 cells and
+   4 microbatches, and Future on 4 stage streams (gpipe) with the same
+   cells and microbatches (the Lazy run's tokens).
+8a. llama-3.2-vision-90b at every published width, cut to 20 layers (4
+   groups of its period: 16 self-attention and 4 cross-attention layers,
+   38.4 GB in bf16; random weights from seed 0, every cross-attention gate
+   set to a seeded nonzero value, since ``init_params``' zeros make a
+   cross block add 0): the build's peak memory; the 12 requests through
+   ``Engine`` (``"flash"``, no vision embeds, as the JAX engines serve
+   it), whose counters show decode attention once per decode step and
+   self-attention layer, flash attention once per prefill call and layer
+   and once per decode step and cross-attention layer (Sq 1 over the
+   1601 vision keys), RMSNorm twice per call and layer, the emit once per
+   decode step; a decode step and a prefill call as one CUDA graph; a
+   prefill chunk at 0 with fresh vision embeds (B 8, 1601 x 8192), a chunk
+   at 128 reading the vision K/V it cached and a decode step, kernels
+   against plain in fp32 and bf16, the cached vision K/V included; the
+   StreamEngine a (Lazy, 4 cells, 1 microbatch: the Engine's tokens), b
+   (Lazy, 4 cells, 4 microbatches) and c (b under Future on 4 stage
+   streams, gpipe: b's tokens).
+8b. musicgen-medium whole (48 layers, d 1536, frame embeddings in place
+   of tokens): ``forward``, a chunked ``prefill_step`` of 8 x 600 frames
+   and 32 decode steps, kernels against plain in fp32 and bf16, with
+   exact launches (the engines serve token-input archs only).
+9. Stream phase: the paper's two algorithms under the port's
    ``LazyEvaluator`` on the card, each ``collect`` (and the work around
    it that stays on the card) under ``torch.cuda.set_sync_debug_mode
    ("error")``, so that a cell which syncs with the host fails: the
@@ -184,6 +209,11 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
+def row_max(x):
+    """Each row's largest |x|, kept as a column."""
+    return x.abs().amax(dim=-1, keepdim=True)
+
+
 # ---------------------------------------------------------------------------
 # Kernel phase
 # ---------------------------------------------------------------------------
@@ -226,11 +256,12 @@ def run_decode_attention(gen, results):
     from repro_torch.kernels.decode_attention.ops import decode_split, fused_decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    b, s, dh, copies = 8, 1024, 128, 4
+    b, s, copies = 8, 1024, 4
     sms = K.sm_count(torch.device("cuda"))
     pos = [0, s - 1, 517, 128, 64, 900, 1000, 3]
     main = None
-    for label, h, kv in (("olmo-1b", 16, 16), ("qwen3-32b GQA", 64, 8)):
+    for label, h, kv, dh in (("olmo-1b", 16, 16, 128), ("qwen3-32b GQA", 64, 8, 128),
+                             ("musicgen-medium MHA", 24, 24, 64)):
         for dtype in (torch.bfloat16, torch.float32):
             cases = [decode_case(gen, b, s, h, kv, dh, dtype, pos) for _ in range(copies)]
             args, p, n = cases[0]
@@ -413,17 +444,23 @@ def run_flash(gen, results):
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # label, b, sq, sk, h, kv, dtype, causal, q_offset, kv_len (None | int | per-row list)
-        ("prefill chunk", 1, 128, 1024, 16, 16, bf16, True, 0, 128),
-        ("prefill chunk", 1, 128, 1024, 16, 16, bf16, True, 128, 256),
-        ("prefill chunk", 1, 128, 1024, 16, 16, bf16, True, 512, 640),  # the record's case
-        ("ragged kv_len", 4, 128, 1024, 16, 16, bf16, True, 512, [640, 0, 300, 1024]),
-        ("forward", 1, 2048, 2048, 16, 16, bf16, True, 0, None),
-        ("qwen3-32b GQA prefill chunk", 1, 128, 1024, 64, 8, bf16, True, 512, 640),
-        ("prefill chunk", 1, 128, 1024, 16, 16, f32, True, 512, 640),
+        # label, b, sq, sk, h, kv, dh, dtype, causal, q_offset, kv_len (None | int | per-row list)
+        ("prefill chunk", 1, 128, 1024, 16, 16, 128, bf16, True, 0, 128),
+        ("prefill chunk", 1, 128, 1024, 16, 16, 128, bf16, True, 128, 256),
+        ("prefill chunk", 1, 128, 1024, 16, 16, 128, bf16, True, 512, 640),  # the record's case
+        ("ragged kv_len", 4, 128, 1024, 16, 16, 128, bf16, True, 512, [640, 0, 300, 1024]),
+        ("forward", 1, 2048, 2048, 16, 16, 128, bf16, True, 0, None),
+        ("qwen3-32b GQA prefill chunk", 1, 128, 1024, 64, 8, 128, bf16, True, 512, 640),
+        ("prefill chunk", 1, 128, 1024, 16, 16, 128, f32, True, 512, 640),
+        # llama-3.2-vision's cross-attention over its 1601 vision tokens (not
+        # a multiple of the 64-key tile), non-causal, every key valid: a
+        # decode step's one query row (the record's ``cross`` entry) and a
+        # prefill chunk's 128
+        *[("llama-3.2-vision cross", 8, sq, 1601, 64, 8, 128, dt, False, 0, None)
+          for sq in (1, 128) for dt in (bf16, f32)],
+        ("musicgen-medium prefill chunk", 1, 128, 1024, 24, 24, 64, bf16, True, 512, 640),
     ]
-    dh = 128
-    for label, b, sq, sk, h, kv, dtype, causal, q_offset, kv_len in cases:
+    for label, b, sq, sk, h, kv, dh, dtype, causal, q_offset, kv_len in cases:
         elem = torch.tensor([], dtype=dtype).element_size()
         per_copy = elem * (2 * b * sq * h * dh + 2 * b * sk * kv * dh)
         copies = min(16, max(1, -(-int(1.3 * L2_BYTES) // per_copy)))  # together colder than L2
@@ -454,7 +491,8 @@ def run_flash(gen, results):
         mask = key[None, None, :] < torch.tensor(per_row, device="cuda")[:, None, None]
         if causal:
             mask = mask & (key[None, :] <= torch.arange(sq, device="cuda")[:, None] + q_offset)
-        mask = mask[:, None]  # (B, 1, Sq, n)
+        # (B, 1, Sq, n); none where every query sees every key (cross-attention)
+        mask = None if not causal and kv_len is None else mask[:, None]
         sdpa_kw = {"enable_gqa": True} if h != kv else {}
         library = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2),
@@ -477,11 +515,14 @@ def run_flash(gen, results):
         if not ok:
             fail(f"flash_attention {label} {dtype} q_offset={q_offset} disagrees with its "
                  f"plain version")
+        row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms)
         if label == "prefill chunk" and q_offset == 512 and dtype == bf16:
-            results["flash_attention"] = dict(
-                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+            results["flash_attention"] = row
+        if label == "llama-3.2-vision cross" and sq == 1 and dtype == bf16:
+            cross = dict(row, kernel_over_library=ms / lib_ms)
         del inputs, kernel, plain, library
+    results["flash_attention"]["cross"] = cross
 
 
 # SSD intra-chunk kernel.  fp32: sums of up to 256 products in another
@@ -605,8 +646,11 @@ def run_ssd(gen, results):
 # which can move the bf16 rounding by one bf16 ulp (2**-7 relative).
 RMS_TOL = {"bfloat16": (1e-5, 2**-7), "float32": (1e-6, 1e-5)}
 # (rows, d): a decode step's 8 rows and a 256-token prefill chunk's, at
-# Mamba2-1.3B's gated norm (d_inner 4096) and block pre-norm (d 2048)
-RMS_SHAPES = ((8, 4096), (256, 4096), (8, 2048), (256, 2048))
+# Mamba2-1.3B's gated norm (d_inner 4096) and block pre-norm (d 2048);
+# a decode step's 8 rows and a 128-token chunk's at musicgen-medium's d
+# 1536 and llama-3.2-vision's d 8192
+RMS_SHAPES = ((8, 4096), (256, 4096), (8, 2048), (256, 2048), (8, 1536), (128, 1536),
+              (8, 8192), (128, 8192))
 
 
 def run_rmsnorm(gen, results):
@@ -1120,9 +1164,6 @@ def run_ssm_end_to_end(cfg, params):
                 K._CUDA_IMPLS.update(saved)
         del p
 
-    def row_max(x):
-        return x.abs().amax(dim=-1, keepdim=True)
-
     for step in (0, 256, "decode"):
         what = {0: "prefill chunk [0, 256)", 256: "ragged tail [256, 293)",
                 "decode": "decode step at 293"}[step]
@@ -1169,6 +1210,19 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in P.leaves(tree) if t.is_cuda)
 
 
+def free_card() -> None:
+    """Give back the memory of a phase whose weights were dropped: the
+    engines' methods wrapped here for timing and counting close over the
+    engine, and such cycles hold its weights until the cyclic garbage
+    collector runs."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def guard_rounds(eng, label, shard, rounds, peaks, units=None) -> None:
     """Run each of ``eng``'s rounds (its ``collect``) under
     :class:`no_host_sync` and append its host-clock time to ``rounds``
@@ -1213,15 +1267,25 @@ def count_prefills(eng, prefills) -> None:
     eng._prefill = counted_prefill
 
 
+def attention_layers(cfg) -> tuple[int, int]:
+    """(self-attention layers, cross-attention layers) of ``cfg``."""
+    from repro_torch.models import transformer as T
+
+    plans = T.block_plans(cfg)
+    groups = cfg.num_layers // len(plans)
+    return tuple(groups * sum(p.mixer == kind for p in plans) for kind in ("attn", "cross_attn"))
+
+
 def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overlap=False,
                       **pipe):
     """Serve the 12 requests through ``StreamEngine`` ("flash",
     ``kernels="cuda"``); every round's ``collect`` under
     :class:`no_host_sync`.  The launch counters, zeroed just before the
     run and read just after, must show decode attention once per decoded
-    item and layer, the emit once per emitted item, flash attention once
-    per prefill call and layer and, for an rmsnorm model, RMSNorm twice
-    per item or prefill call and layer; each round's peak memory must stay
+    item and self-attention layer, the emit once per emitted item, flash
+    attention once per prefill call and attention layer and once per
+    item and cross-attention layer and, for an rmsnorm model, RMSNorm
+    twice per item or prefill call and layer; each round's peak memory must stay
     below the memory allocated before it plus the round's admission
     payload plus one cell's cache shard (no round copies the cache).
     With ``overlap`` (a Future run), events around every unit give the
@@ -1262,8 +1326,9 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
     items = eng.rounds * pcfg.round_steps * pcfg.microbatches
     # an rmsnorm model's two block pre-norms a layer, per item and prefill call
     norms = 2 * cfg.num_layers * (items + prefills[0]) if cfg.norm == "rmsnorm" else 0
-    want = dict(NO_LAUNCHES, decode_attention=items * cfg.num_layers, emit_norm_logits=items,
-                attention=prefills[0] * cfg.num_layers, rmsnorm=norms)
+    own, cross = attention_layers(cfg)
+    want = dict(NO_LAUNCHES, decode_attention=items * own, emit_norm_logits=items,
+                attention=prefills[0] * (own + cross) + items * cross, rmsnorm=norms)
     if launches != want:
         fail(f"stream engine {label}: launch counts {launches}, expected {want} for {items} "
              f"items and {prefills[0]} prefill calls")
@@ -1962,10 +2027,43 @@ def run_step_times(cfg, params, smi) -> None:
         torch.cuda.synchronize()
         host = (time.perf_counter() - t) / 5 * 1e3
         bms = wbytes / HBM_BYTES_PER_S * 1e3
-        print(f"moonlight {what} ({smi}): device {dev:.2f} ms (one CUDA graph replayed), "
+        print(f"{cfg.name} {what} ({smi}): device {dev:.2f} ms (one CUDA graph replayed), "
               f"eager {host:.2f} ms (host clock, synchronised); the {wbytes} bytes of weights "
               f"read once {bms:.2f} ms: device/eager {dev / host:.3f}", flush=True)
     del cache, single
+
+
+def build_on_card(cfg, want_count, smi):
+    """``cfg``'s random weights from seed 0 on the card: prints the
+    parameter count, the weight bytes and the build's peak memory; fails
+    unless the count is the JAX layout's (``want_count``) and the peak
+    leaves room for an 8 x 1024 cache."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+
+    layout = T.model_layout(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    params = T.Transformer(cfg, init_params(layout, seed=0, device="cuda")).params
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    count, nbytes = param_count(layout), tree_bytes(params)
+    cache = sum(m.numel() * m.element_size()
+                for blk in T.cache_layout(cfg, 8, 1024).values() for m in blk.values())
+    print(f"build ({smi}): {cfg.name}, {cfg.num_layers} layers, {count} parameters, "
+          f"{nbytes} bytes of weights, peak memory during the build {peak} bytes ({before} "
+          f"allocated before it; cache of 8 x 1024 rows: {cache} bytes more), in {build:.1f} s",
+          flush=True)
+    if count != want_count:
+        fail(f"{cfg.name} has {count} parameters, the JAX layout {want_count}")
+    if peak + cache > CARD_BYTES:
+        fail(f"{cfg.name}'s build peaks at {peak} bytes: no room for its {cache}-byte cache")
+    return params
 
 
 def run_moonlight(smi) -> dict:
@@ -1975,35 +2073,15 @@ def run_moonlight(smi) -> dict:
     ``kernels="cuda"``) with exact launch counts; the decode step and
     the prefill chunk against the plain path, routes included;
     ``moe_apply`` repeatable; the StreamEngine under Lazy (4 cells, 1
-    microbatch: the Engine's tokens; 8 cells, 4 microbatches) and Future
-    (4 stages, gpipe, 8 cells, 4 microbatches: the Lazy run's tokens).
+    microbatch: the Engine's tokens; on the first 24 layers, 8 cells, 4
+    microbatches) and Future (the first 24 layers, 4 stages, gpipe, 8
+    cells, 4 microbatches: the Lazy run's tokens).
     Returns the launch counts summed over the served runs."""
-    import torch
-
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.params import map_tree
 
     cfg = get_config("moonshot-v1-16b-a3b").with_overrides(kernels="cuda")
-    layout = T.model_layout(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params = T.Transformer(cfg, init_params(layout, seed=0, device="cuda")).params
-    torch.cuda.synchronize()
-    build = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated()
-    count, nbytes = param_count(layout), tree_bytes(params)
-    cache = sum(m.numel() * m.element_size()
-                for blk in T.cache_layout(cfg, 8, 1024).values() for m in blk.values())
-    print(f"moonlight build ({smi}): {cfg.name}, {cfg.num_layers} layers, {count} parameters, "
-          f"{nbytes} bytes of weights, peak memory during the build {peak} bytes (cache of 8 x "
-          f"1024 rows: {cache} bytes more), in {build:.1f} s", flush=True)
-    if count != MOONLIGHT_PARAMS:
-        fail(f"moonlight has {count} parameters, the JAX layout {MOONLIGHT_PARAMS}")
-    if peak + cache > CARD_BYTES:
-        fail(f"moonlight's build peaks at {peak} bytes: no room for its {cache}-byte cache")
-
+    params = build_on_card(cfg, MOONLIGHT_PARAMS, smi)
     layers = cfg.num_layers
     total = dict(NO_LAUNCHES)
 
@@ -2034,18 +2112,331 @@ def run_moonlight(smi) -> dict:
     if a != engine_tokens:
         fail("moonlight stream engine a: tokens differ from the Engine's")
     print(f"moonlight stream engine a: tokens identical to the Engine's ({n}/{n})", flush=True)
+    # b and c at half depth, the first 24 layers (views of the weights):
+    # a holds the full depth to the Engine's tokens, and b and c are held
+    # to each other
+    cut = layers // 2
+    half = {**params, "blocks": map_tree(lambda t: t[:cut], params["blocks"])}
     pipe = dict(num_cells=8, microbatches=4)
-    b, launches = run_stream_engine(cfg, params, "moonlight b: Lazy, 8 cells, 4 microbatches",
+    b, launches = run_stream_engine(cfg.with_overrides(num_layers=cut), half,
+                                    f"moonlight b: Lazy, {cut} layers, 8 cells, 4 microbatches",
                                     smi, **pipe)
     add(launches)
-    c, launches = run_stream_engine(cfg, params, "moonlight c: Future, 4 stages, gpipe", smi,
+    c, launches = run_stream_engine(cfg.with_overrides(num_layers=cut), half,
+                                    f"moonlight c: Future, {cut} layers, 4 stages, gpipe", smi,
                                     stages=4, schedule="gpipe", overlap=True, **pipe)
     add(launches)
     if c != b:
         fail("moonlight stream engine c: tokens differ from the Lazy run b's")
     print("moonlight stream engine c: tokens identical to b's", flush=True)
+    del params, half
+    free_card()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The zoo's last two input kinds: cross-attention to vision tokens
+# (llama-3.2-vision) and embedding inputs (musicgen-medium)
+# ---------------------------------------------------------------------------
+
+# the JAX package's model_layout: llama-3.2-vision-90b cut to 20 layers (4
+# groups of its 5-layer period, every width published), musicgen-medium whole
+VISION_LAYERS = 20
+VISION_PARAMS = 19_214_442_500
+MUSICGEN_PARAMS = 1_818_379_776
+
+
+def check_logits(label, got, want, ref32):
+    """``got`` (the kernel path's logits) against ``want`` (the plain
+    path's).  fp32 (``ref32`` None): allowed 1e-4 of each row's largest
+    |logit|, and the greedy tokens must be equal.  bf16: with D the
+    distance, per row, between the plain path's bf16 logits and its fp32
+    ones (``ref32``: what serving in bf16 moves them), two bf16 paths that
+    each lie within D of the fp32 result lie within 2 D of each other:
+    allowed 2 D; greedy tokens must agree wherever the plain top-1 beats
+    its top-2 by more than twice the allowance.  Returns (worst/allowed,
+    rows with equal tokens, rows compared)."""
+    import torch
+
+    if ref32 is None:
+        tol = 1e-4 * row_max(want)
+    else:
+        tol = 2 * row_max(want - ref32)
+    err = (got - want).abs()
+    worst = (err / tol).max().item()
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol.squeeze(-1)
+    if ref32 is None:
+        decided = torch.ones_like(decided)
+    same = got.argmax(-1) == want.argmax(-1)
+    if not bool(torch.isfinite(got).all()) or worst > 1:
+        fail(f"{label}: the kernel path's logits are {worst:.3f} x the allowed distance from the "
+             f"plain path's")
+    if not bool(same[decided].all()):
+        fail(f"{label}: greedy tokens differ where the plain top-1 is decided")
+    return worst, int(same.sum()), int(decided.sum())
+
+
+def set_gates(params, seed) -> list[float]:
+    """Every cross-attention gate set to a seeded value in [0.5, 1.5):
+    ``init_params`` gives them zeros, and ``tanh(0)`` would make each
+    cross block add exactly 0, whatever its vision input."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    values = []
+    for _, blk in sorted(params["blocks"].items()):
+        if "xattn_gate" in blk:
+            gate = blk["xattn_gate"]["gate"]
+            gate.copy_(torch.rand(gate.shape, generator=gen, device="cuda") + 0.5)
+            values += gate.flatten().tolist()
+    return values
+
+
+def run_cross_end_to_end(cfg, params):
+    """An image prompt through the cut llama-3.2-vision: a 128-token chunk
+    at pos 0 with fresh vision embeds (B 8, 1601 x 8192 from a seed), a
+    chunk at pos 128 that reads the vision K/V the first one cached, and a
+    decode step at 256 from that cache.  The kernel path (``kernels=
+    "cuda"``; the chunks under ``attn_impl="flash"``: the flash kernel for
+    every self- and cross-attention, the decode step's cross-attention
+    through it at Sq = 1; decode attention; RMSNorm; the emit) against the
+    plain path (``kernels="plain"``, ``"dense"``), in fp32 (params one
+    layer group upcast at a time) and bf16, under :func:`check_logits`.
+    The first chunk runs each path on a fresh cache, the vision K/V it
+    writes held within the RMSNorm phase's rule (the same einsum on both
+    paths); the second chunk and the step run each path on a copy of the
+    plain path's cache after the call before, as the other end-to-end
+    checks do.  The kernel path's launches are exact."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+
+    b, c = 8, 128
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, 2 * c + 1)), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    vision = torch.randn((b, cfg.vision_tokens, cfg.d_model), generator=gen, device="cuda")
+    lengths = torch.full((b,), 2 * c, dtype=torch.int32, device="cuda")
+    own, cross = attention_layers(cfg)
+    norms = 2 * cfg.num_layers
+    launches = {"chunk": dict(NO_LAUNCHES, attention=own + cross, rmsnorm=norms),
+                "decode": dict(NO_LAUNCHES, decode_attention=own, attention=cross,
+                               rmsnorm=norms, emit_norm_logits=1)}
+    name = next(n for n, p in enumerate(T.block_plans(cfg)) if p.mixer == "cross_attn")
+    name = f"block{name}"
+    steps = (("chunk at 0 with vision embeds", "chunk"), ("chunk at 128", "chunk"),
+             ("decode step at 256", "decode"))
+    logits = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in (torch.float32, torch.bfloat16):
+        p = fp32_params(params) if dtype == torch.float32 else params
+        c_cfg = cfg.with_overrides(dtype=dtype)
+        ve = vision.to(dtype)
+        caches = {mode: T.init_cache(c_cfg, b, 512, device="cuda") for mode in ("plain", "cuda")}
+        for i, (what, kind) in enumerate(steps):
+            if i:
+                caches["cuda"] = {n: {k: t.clone() for k, t in blk.items()}
+                                  for n, blk in caches["plain"].items()}
+            for mode in ("plain", "cuda"):
+                impl = "flash" if mode == "cuda" else "dense"
+                K.reset_launches()
+                if kind == "chunk":
+                    lg, _ = T.prefill_step(p, caches[mode], c_cfg, tokens=toks[:, i * c:(i + 1) * c],
+                                           pos=i * c, vision_embeds=None if i else ve,
+                                           attn_impl=impl, kernels=mode)
+                else:
+                    lg, _ = T.decode_step(p, caches[mode], c_cfg, tokens=toks[:, 2 * c],
+                                          lengths=lengths, attn_impl=impl, kernels=mode)
+                torch.cuda.synchronize()
+                want = launches[kind] if mode == "cuda" else NO_LAUNCHES
+                if K.LAUNCHES != want:
+                    fail(f"{cfg.name} {what} kernels={mode}: launches {K.LAUNCHES}, expected {want}")
+                logits[what, mode, dtype] = lg
+            if i == 0:
+                atol, rtol = RMS_TOL[str(dtype).removeprefix("torch.")]
+                for key in ("k", "v"):
+                    got, ref = caches["cuda"][name][key].float(), caches["plain"][name][key].float()
+                    err = (got - ref).abs()
+                    ok = bool((err <= atol + rtol * ref.abs()).all()) and bool(ref.abs().max() > 0)
+                    print(f"end-to-end {cfg.name} vision {key} written by the first chunk ({name}, "
+                          f"{tuple(got.shape)}), kernels vs plain, {dtype}: max_abs_err "
+                          f"{err.max().item():.3e}, bitwise equal {torch.equal(got, ref)}",
+                          flush=True)
+                    if not ok:
+                        fail(f"{cfg.name}: the vision {key} the kernel path cached differ from the "
+                             f"plain path's")
+        del p, caches
+        torch.cuda.empty_cache()
+    print(f"end-to-end {cfg.name}: peak memory {torch.cuda.max_memory_allocated()} bytes with "
+          f"the fp32 path's layer groups upcast one at a time", flush=True)
+    for what, _ in steps:
+        for dtype in (torch.float32, torch.bfloat16):
+            ref32 = None if dtype == torch.float32 else logits[what, "plain", torch.float32]
+            worst, same, decided = check_logits(
+                f"{cfg.name} {what} {dtype}", logits[what, "cuda", dtype],
+                logits[what, "plain", dtype], ref32)
+            print(f"end-to-end {cfg.name} {what} kernels vs plain, {dtype} (B={b}): worst/allowed "
+                  f"{worst:.3f}; greedy tokens equal in {same}/{b} rows, {decided} compared",
+                  flush=True)
+
+
+def run_llama_vision(smi) -> dict:
+    """llama-3.2-vision-90b at every published width, cut to 20 layers (4
+    groups of its period: 16 self-attention and 4 cross-attention
+    layers, 38.4 GB in bf16), random weights from seed 0 and every
+    cross-attention gate set nonzero (:func:`set_gates`), after
+    Moonlight's weights are freed: the build's peak memory; the 12
+    requests through the Engine (``"flash"``, ``kernels="cuda"``; no
+    vision embeds, as the JAX engines serve it: the cross blocks read the
+    zero vision K/V of a fresh cache), whose counters show decode
+    attention once per decode step and self-attention layer, flash
+    attention once per prefill call and layer and once per decode step
+    and cross-attention layer, RMSNorm twice per call and layer and the
+    emit once per decode step; one decode step and prefill call as a CUDA
+    graph; :func:`run_cross_end_to_end`; the StreamEngine, each round
+    under the sync guard: a, Lazy, 4 cells, 1 microbatch (the Engine's
+    tokens); b, Lazy, 4 cells, 4 microbatches; c, b under Future on 4
+    stage streams (gpipe: b's tokens).  Returns the launch counts summed
+    over the served runs."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("llama-3.2-vision-90b").with_overrides(num_layers=VISION_LAYERS,
+                                                            kernels="cuda")
+    params = build_on_card(cfg, VISION_PARAMS, smi)
+    gates = set_gates(params, 8)
+    print(f"{cfg.name}: the {len(gates)} cross-attention gates (zeros from init_params) set to "
+          f"seeded values {[round(g, 4) for g in gates]}", flush=True)
+    layers = cfg.num_layers
+    own, cross = attention_layers(cfg)
+    total = dict(NO_LAUNCHES)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    engine_tokens, launches = run_engine(
+        cfg, params, "llama-3.2-vision attn_impl=flash kernels=cuda", prefill_chunk=128,
+        attn_impl="flash",
+        want=lambda steps, chunks: dict(
+            NO_LAUNCHES, decode_attention=steps * own, emit_norm_logits=steps,
+            attention=chunks * layers + steps * cross, rmsnorm=2 * (steps + chunks) * layers))
+    add(launches)
+    run_step_times(cfg, params, smi)
+    run_cross_end_to_end(cfg, params)
+
+    n = sum(len(x) for x in engine_tokens)
+    a, launches = run_stream_engine(cfg, params, "llama-3.2-vision a: Lazy, 4 cells, 1 microbatch",
+                                    smi, num_cells=4, microbatches=1, round_steps=8,
+                                    admit_per_round=4)
+    add(launches)
+    if a != engine_tokens:
+        fail("llama-3.2-vision stream engine a: tokens differ from the Engine's")
+    print(f"llama-3.2-vision stream engine a: tokens identical to the Engine's ({n}/{n})",
+          flush=True)
+    pipe = dict(num_cells=4, microbatches=4)
+    b, launches = run_stream_engine(cfg, params,
+                                    "llama-3.2-vision b: Lazy, 4 cells, 4 microbatches", smi,
+                                    **pipe)
+    add(launches)
+    c, launches = run_stream_engine(cfg, params, "llama-3.2-vision c: Future, 4 stages, gpipe",
+                                    smi, stages=4, schedule="gpipe", overlap=True, **pipe)
+    add(launches)
+    if c != b:
+        fail("llama-3.2-vision stream engine c: tokens differ from the Lazy run b's")
+    print("llama-3.2-vision stream engine c: tokens identical to b's", flush=True)
     del params
-    torch.cuda.empty_cache()
+    free_card()
+    return total
+
+
+def run_musicgen(smi) -> dict:
+    """musicgen-medium whole (48 layers, d 1536, 24 x 64 MHA, untied V
+    2048; random weights from seed 0), which takes frame embeddings (its
+    EnCodec frontend is a stub; the engines serve token-input archs
+    only, as the JAX package's do): ``forward`` over 2 x 256 frames, a
+    chunked ``prefill_step`` of 8 rows x 600 frames (chunks of 128 and
+    the 88-frame tail, unpadded) and 32 decode steps, each fed seeded
+    frames, with the kernels (``kernels="cuda"``, ``attn_impl="flash"``)
+    and with ``kernels="plain"`` (``"dense"``), each path on a cache of
+    its own from empty, in fp32 (params upcast) and bf16, under
+    :func:`check_logits`.  The kernel path's launches are exact: flash
+    attention 48 a forward or prefill call, decode attention 48 and the
+    emit 1 a decode step, RMSNorm 96 a call.  Returns the kernel path's
+    bf16 launch counts."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import map_tree
+
+    cfg = get_config("musicgen-medium").with_overrides(kernels="cuda")
+    params = build_on_card(cfg, MUSICGEN_PARAMS, smi)
+    layers, b, plen, steps = cfg.num_layers, 8, 600, 32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    frames = torch.randn((b, plen + steps, cfg.d_model), generator=gen, device="cuda")
+    pieces = [(lo, min(lo + 128, plen)) for lo in range(0, plen, 128)]
+    calls = ([("forward", None)] + [(f"prefill [{lo}, {hi})", (lo, hi)) for lo, hi in pieces]
+             + [(f"decode step {t}", plen + t) for t in range(steps)])
+    want = {"forward": dict(NO_LAUNCHES, attention=layers, rmsnorm=2 * layers),
+            "prefill": dict(NO_LAUNCHES, attention=layers, rmsnorm=2 * layers),
+            "decode": dict(NO_LAUNCHES, decode_attention=layers, rmsnorm=2 * layers,
+                           emit_norm_logits=1)}
+    total, logits, t0 = dict(NO_LAUNCHES), {}, time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        p = map_tree(lambda t: t.float(), params) if dtype == torch.float32 else params
+        c_cfg = cfg.with_overrides(dtype=dtype)
+        for mode in ("plain", "cuda"):
+            impl = "flash" if mode == "cuda" else "dense"
+            cache = T.init_cache(c_cfg, b, 1024, device="cuda")
+            for what, at in calls:
+                K.reset_launches()
+                if at is None:
+                    lg = T.forward(p, c_cfg, embeds=frames[:2, :256], attn_impl=impl,
+                                   kernels=mode)[0][:, -1]
+                elif isinstance(at, tuple):
+                    lg, _ = T.prefill_step(p, cache, c_cfg, embeds=frames[:, at[0]:at[1]],
+                                           pos=at[0], attn_impl=impl, kernels=mode)
+                else:
+                    lg, _ = T.decode_step(
+                        p, cache, c_cfg, embeds=frames[:, at:at + 1], attn_impl=impl,
+                        lengths=torch.full((b,), at, dtype=torch.int32, device="cuda"),
+                        kernels=mode)
+                torch.cuda.synchronize()
+                expected = want[what.split()[0]] if mode == "cuda" else NO_LAUNCHES
+                if K.LAUNCHES != expected:
+                    fail(f"{cfg.name} {what} kernels={mode} {dtype}: launches {K.LAUNCHES}, "
+                         f"expected {expected}")
+                if mode == "cuda" and dtype == torch.bfloat16:
+                    for k, v in K.LAUNCHES.items():
+                        total[k] += v
+                logits[what, mode, dtype] = lg
+            del cache
+        del p
+    for kind in ("forward", "prefill", "decode"):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows = [check_logits(f"{cfg.name} {what} {dtype}", logits[what, "cuda", dtype],
+                                 logits[what, "plain", dtype],
+                                 None if dtype == torch.float32
+                                 else logits[what, "plain", torch.float32])
+                    for what, _ in calls if what.startswith(kind)]
+            n = sum(logits[what, "plain", dtype].shape[0] for what, _ in calls
+                    if what.startswith(kind))
+            print(f"end-to-end {cfg.name} {kind} ({len(rows)} calls) kernels vs plain, {dtype}: "
+                  f"worst/allowed {max(r[0] for r in rows):.3f}; greedy tokens equal in "
+                  f"{sum(r[1] for r in rows)}/{n} rows, {sum(r[2] for r in rows)} compared",
+                  flush=True)
+    print(f"{cfg.name} ({smi}): {len(calls)} calls a path, 4 paths, in "
+          f"{time.perf_counter() - t0:.1f} s; kernel path launches (bf16) {total}", flush=True)
+    del params
+    free_card()
     return total
 
 
@@ -2139,7 +2530,7 @@ def main() -> int:
                      ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention")):
         launches[name] += se_launches[op] + sup_launches[op]
     del params
-    torch.cuda.empty_cache()
+    free_card()
 
     # 6. Mamba2-1.3B: engine phase and end-to-end check.  prefill_chunk
     # is the config's SSD chunk, so a full prefill chunk is one SSD chunk
@@ -2155,7 +2546,7 @@ def main() -> int:
     launches["ssd"], launches["rmsnorm"] = ssm_launches["ssd"], ssm_launches["rmsnorm"]
     run_ssm_end_to_end(cfg, params)
     del params
-    torch.cuda.empty_cache()
+    free_card()
 
     # 7. Moonlight-16B-A3B: Mixture-of-Experts serving at full width and depth
     moon = run_moonlight(smi)
@@ -2164,7 +2555,15 @@ def main() -> int:
                      ("rmsnorm", "rmsnorm")):
         launches[name] += moon[op]
 
-    # 8. The paper's Stream programs under the Lazy and Future evaluators on the card
+    # 8a. llama-3.2-vision, a full-width 20-layer cut: cross-attention to
+    # vision tokens; 8b. musicgen-medium whole: embedding inputs
+    zoo = (run_llama_vision(smi), run_musicgen(smi))
+    for name, op in (("decode_attention", "decode_attention"),
+                     ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention"),
+                     ("rmsnorm", "rmsnorm")):
+        launches[name] += sum(counts[op] for counts in zoo)
+
+    # 9. The paper's Stream programs under the Lazy and Future evaluators on the card
     run_stream_phase(smi)
 
     source = {

@@ -22,12 +22,18 @@ CUDA kernels on a card, the plain PyTorch ops on the CPU).
 
     # a Mixture-of-Experts model (also llama4-maverick-400b-a17b and the
     # hybrid jamba-1.5-large-398b; full width only where it fits the card)
-    PYTHONPATH=src python -m repro_torch.launch.serve \
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --smoke --device cpu --requests 4
 
-``main(argv)`` returns the finished requests.  Archs the port cannot
-serve yet (cross-attention, embedding inputs: ROADMAP A9) exit with a
-message.
+    # the vision-language llama-3.2-vision-90b serves text prompts, as
+    # the JAX engines do: no vision embeds are passed, so its
+    # cross-attention blocks read the zero vision K/V of a fresh cache
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-90b --smoke --device cpu --requests 4
+
+``main(argv)`` returns the finished requests.  An embedding-input arch
+(musicgen-medium) exits with a message, as the reference's CLI does: it
+needs the embedding frontend stub.
 """
 from __future__ import annotations
 
@@ -133,10 +139,10 @@ def main(argv=None):
     if args.num_layers:
         cfg = cfg.with_overrides(num_layers=args.num_layers)
     cfg = cfg.with_overrides(kernels=args.kernels)
-    try:
-        layout = T.model_layout(cfg)
-    except NotImplementedError as e:  # cross-attention, embeddings input
-        raise SystemExit(f"cannot serve {cfg.name}: {e}") from e
+    if cfg.embeds_input:
+        raise SystemExit("embeds-input archs need the embedding frontend stub; "
+                         "use a token arch for the serving example")
+    layout = T.model_layout(cfg)
     params = init_params(layout, seed=args.seed, device=args.device)
     print(f"arch={cfg.name} params={param_count(layout)/1e6:.1f}M device={args.device}")
 

@@ -243,7 +243,9 @@ def attention(q, k, v, *, impl: str = "dense", kernels: str = "plain", **kw):
 # ---------------------------------------------------------------------------
 
 
-def attn_layout(cfg, stacked: tuple[int, ...] = ()):
+def attn_layout(cfg, stacked: tuple[int, ...] = (), cross: bool = False):
+    """Projections of an attention block; a cross-attention block
+    (``cross``) has no qkv biases, and keeps the qk-norm scales."""
     d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ax = ("layers",) * len(stacked)
     out = {
@@ -252,7 +254,7 @@ def attn_layout(cfg, stacked: tuple[int, ...] = ()):
         "wv": ParamSpec(stacked + (d, kv, dh), ax + ("embed", "kv_heads", "head_dim"), dtype=cfg.dtype),
         "wo": ParamSpec(stacked + (h, dh, d), ax + ("heads", "head_dim", "embed"), dtype=cfg.dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         out["bq"] = ParamSpec(stacked + (h, dh), ax + ("heads", "head_dim"), init="zeros", dtype=cfg.dtype)
         out["bk"] = ParamSpec(stacked + (kv, dh), ax + ("kv_heads", "head_dim"), init="zeros", dtype=cfg.dtype)
         out["bv"] = ParamSpec(stacked + (kv, dh), ax + ("kv_heads", "head_dim"), init="zeros", dtype=cfg.dtype)

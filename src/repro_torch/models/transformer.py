@@ -4,13 +4,15 @@ Layers are grouped into a repeating *period*; parameters are stacked
 over ``num_layers / period`` groups, and where the JAX package scans the
 stack this port runs a Python loop over the groups.
 
-Ported so far: blocks of self-attention or Mamba-2 (``models.ssm``),
-each with a dense MLP, a Mixture-of-Experts MLP (``models.moe``) or
-none -- dense decoders (olmo-1b, qwen1.5-4b, qwen3-32b, internlm2-20b),
-MoE decoders (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b), the
-hybrid jamba-1.5-large-398b and pure SSMs (mamba2-1.3b).
-Cross-attention blocks and embedding inputs raise
-``NotImplementedError`` (ROADMAP A9).
+Every block kind of the zoo: self-attention, Mamba-2 (``models.ssm``)
+or gated cross-attention to vision tokens, each with a dense MLP, a
+Mixture-of-Experts MLP (``models.moe``) or none -- dense decoders
+(olmo-1b, qwen1.5-4b, qwen3-32b, internlm2-20b), MoE decoders
+(moonshot-v1-16b-a3b, llama4-maverick-400b-a17b), the hybrid
+jamba-1.5-large-398b, pure SSMs (mamba2-1.3b), the vision-language
+llama-3.2-vision-90b (``vision_embeds``: precomputed patch embeddings,
+whose K/V the cache keeps) and the embedding-input musicgen-medium
+(``embeds`` in place of ``tokens``: its frontend is a stub).
 
 Step kinds:
   * ``forward``      -- logits for full sequences.
@@ -41,10 +43,9 @@ from repro_torch.kernels import get_impl, resolve_mode
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models.params import ParamSpec
 
 PyTree = Any
-
-_NOT_PORTED = "is not ported yet (ROADMAP A9: remaining model families)"
 
 _ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_fraction": 0.0}
 
@@ -91,14 +92,6 @@ def block_plans(cfg: ArchConfig) -> list[BlockPlan]:
     return plans
 
 
-def _check_ported(cfg: ArchConfig, plans: list[BlockPlan]) -> None:
-    if cfg.embeds_input:
-        raise NotImplementedError(f"embeddings input ({cfg.name}) {_NOT_PORTED}")
-    for plan in plans:
-        if plan.mixer not in ("attn", "mamba"):
-            raise NotImplementedError(f"{plan.mixer!r} blocks ({cfg.name}) {_NOT_PORTED}")
-
-
 # ---------------------------------------------------------------------------
 # Layout
 # ---------------------------------------------------------------------------
@@ -110,15 +103,17 @@ def model_layout(cfg: ArchConfig) -> PyTree:
         raise ValueError(f"{cfg.num_layers=} not divisible by period {period}")
     stacked = (cfg.num_layers // period,)
     plans = block_plans(cfg)
-    _check_ported(cfg, plans)
 
     blocks: dict[str, PyTree] = {}
     for i, plan in enumerate(plans):
         blk: dict[str, PyTree] = {
             "norm_mixer": L.make_norm_layout(cfg.norm, cfg.d_model, stacked),
         }
-        if plan.mixer == "attn":
-            blk["attn"] = L.attn_layout(cfg, stacked)
+        if plan.mixer in ("attn", "cross_attn"):
+            blk["attn"] = L.attn_layout(cfg, stacked, cross=plan.mixer == "cross_attn")
+            if plan.mixer == "cross_attn":
+                blk["xattn_gate"] = {"gate": ParamSpec(stacked + (1,), ("layers", None),
+                                                       init="zeros", dtype=torch.float32)}
         else:
             blk["mamba"] = S.ssm_layout(cfg, cfg.ssm, stacked)
         if plan.ffn != "none":
@@ -145,20 +140,23 @@ def model_layout(cfg: ArchConfig) -> PyTree:
 def cache_layout(cfg: ArchConfig, batch: int, max_len: int) -> PyTree:
     """Abstract cache: dict mirroring blocks, leaves ``meta`` tensors.
 
-    Attention: K/V (groups, B, Smax, KV, dh).  Mamba: conv (groups, B,
-    W-1, conv_dim) in ``cfg.dtype`` and state (groups, B, H, N, P) fp32.
+    Attention: K/V (groups, B, Smax, KV, dh).  Cross-attention: the
+    vision tokens' K/V (groups, B, vision_tokens, KV, dh), which a
+    prefill chunk given ``vision_embeds`` writes and decode only reads.
+    Mamba: conv (groups, B, W-1, conv_dim) in ``cfg.dtype`` and state
+    (groups, B, H, N, P) fp32.
     """
     groups = cfg.num_layers // effective_period(cfg)
     plans = block_plans(cfg)
-    _check_ported(cfg, plans)
 
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
 
     caches: dict[str, PyTree] = {}
     for i, plan in enumerate(plans):
-        if plan.mixer == "attn":
-            shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        if plan.mixer in ("attn", "cross_attn"):
+            rows = max_len if plan.mixer == "attn" else cfg.vision_tokens
+            shape = (groups, batch, rows, cfg.num_kv_heads, cfg.head_dim)
             caches[f"block{i}"] = {"k": meta(shape, cfg.dtype), "v": meta(shape, cfg.dtype)}
         else:
             _, num_heads, conv_dim, _ = S.ssm_dims(cfg, cfg.ssm)
@@ -277,6 +275,40 @@ def _self_attn(
     return L.attn_out(params, ctx), (k, v)
 
 
+def _cross_attn(
+    params, gate, x, cfg, *, vision_kv=None, vision_embeds=None,
+    attn_impl="dense", q_chunk=512, kv_chunk=1024, kernels="plain",
+):
+    """Gated cross-attention to vision tokens (llama-3.2 style).  Returns
+    (out, {"k", "v"}): the vision K/V it attended to.
+
+    Fresh ``vision_embeds`` (B, V, d) are projected to K/V (then
+    ``k_norm``); otherwise ``vision_kv`` holds K/V as a prefill wrote
+    them (normalised already).  No RoPE and no mask: every query sees
+    every vision token (``causal=False``), through ``attn_impl`` -- the
+    flash kernel under ``"flash"`` with ``kernels="cuda"``.  The output
+    is scaled by ``tanh(gate)``, so a zero gate (``init_params``' own)
+    makes the block add exactly 0."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if "q_norm" in params:
+        q = L.rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+    if vision_kv is not None:
+        k, v = vision_kv["k"], vision_kv["v"]
+    else:
+        # jnp.einsum promotes mixed operands (bf16 embeds against fp32
+        # weights compute in fp32); torch.einsum takes one dtype
+        dtype = torch.promote_types(vision_embeds.dtype, params["wk"].dtype)
+        e = vision_embeds.to(dtype)
+        k = torch.einsum("bvd,dhk->bvhk", e, params["wk"].to(dtype))
+        v = torch.einsum("bvd,dhk->bvhk", e, params["wv"].to(dtype))
+        if "k_norm" in params:
+            k = L.rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+    ctx = L.attention(q, k, v, impl=attn_impl, kernels=kernels, causal=False,
+                      q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = L.attn_out(params, ctx)
+    return torch.tanh(gate["gate"]).to(out.dtype) * out, {"k": k, "v": v}
+
+
 def scatter_decode_rows(cache, rows_k, rows_v, pos):
     """One decode step's cache writes, in place: sequence b's new K/V row
     ``(KV, dh)`` lands at ``[b, pos[b]]`` of the block's cache
@@ -293,17 +325,22 @@ def scatter_decode_rows(cache, rows_k, rows_v, pos):
 
 def _apply_group(
     group_params, x, cfg, plans, *, positions, group_cache=None,
-    cache_pos=None, kv_len=None, collect_kv=False, attn_impl="dense",
-    q_chunk=512, kv_chunk=1024, causal_skip=None, kernels="plain",
+    cache_pos=None, kv_len=None, vision_embeds=None, collect_kv=False,
+    attn_impl="dense", q_chunk=512, kv_chunk=1024, causal_skip=None,
+    kernels="plain",
 ):
     """Apply one period group.  Returns (x, kv, aux) where kv maps each
     block to its full-sequence K/V (a Mamba block: its conv and SSD
-    state) when ``collect_kv`` (forward only), and aux holds the MoE
-    blocks' auxiliary losses averaged over the group's MoE blocks (zeros
-    where it has none).
+    state; a cross-attention block: its vision K/V) when ``collect_kv``
+    (forward only), and aux holds the MoE blocks' auxiliary losses
+    averaged over the group's MoE blocks (zeros where it has none).
 
     A Mamba block writes its new conv and SSD state into the group's
-    cache view in place, as attention writes its K/V rows."""
+    cache view in place, as attention writes its K/V rows.  A
+    cross-attention block given fresh ``vision_embeds`` (forward, a
+    prefill chunk) attends to them rather than to the cache, and writes
+    their K/V into the cache in place; without them it reads the
+    cache's vision K/V and writes nothing (decode)."""
     kv_out: dict[str, PyTree] = {}
     aux = dict(_ZERO_AUX)
     num_moe = 0
@@ -321,6 +358,21 @@ def _apply_group(
             )
             if collect_kv:
                 kv_out[name] = {"k": kv[0], "v": kv[1]}
+        elif plan.mixer == "cross_attn":
+            if vision_embeds is None and cache_i is None:
+                raise ValueError(f"{cfg.name}: cross-attention needs vision_embeds or a cache "
+                                 "holding their K/V")
+            out, vkv = _cross_attn(
+                blk["attn"], blk["xattn_gate"], h, cfg,
+                vision_kv=cache_i if vision_embeds is None else None,
+                vision_embeds=vision_embeds, attn_impl=attn_impl, q_chunk=q_chunk,
+                kv_chunk=kv_chunk, kernels=kernels,
+            )
+            if vision_embeds is not None and cache_i is not None:
+                cache_i["k"].copy_(vkv["k"])
+                cache_i["v"].copy_(vkv["v"])
+            if collect_kv:
+                kv_out[name] = vkv
         else:  # mamba
             out, c_new = S.ssm_block(blk["mamba"], h, cfg, cfg.ssm, cache=cache_i,
                                      kernels=kernels)
@@ -349,15 +401,40 @@ def _apply_group(
 # ---------------------------------------------------------------------------
 
 
+def _embed_input(params, cfg: ArchConfig, tokens=None, embeds=None):
+    """The decoder's input: ``embeds`` cast to ``cfg.dtype`` for an
+    embedding-input arch (its frontend is a stub), else the token
+    embeddings.  Either is contiguous, as the first block pre-norm's
+    kernel takes it: ``embeds`` may be a strided view (a window of a
+    longer frame sequence)."""
+    if cfg.embeds_input:
+        if embeds is None:
+            raise ValueError(f"{cfg.name} takes embeddings (embeds=), not tokens")
+        return embeds.to(cfg.dtype).contiguous()
+    if tokens is None:
+        raise ValueError(f"{cfg.name} takes tokens")
+    return L.embed_lookup(params["embed"]["embedding"], tokens)
+
+
+def _input_device(tokens, embeds) -> torch.device:
+    if tokens is None and embeds is None:
+        raise ValueError("the decoder takes tokens or embeds; neither was given")
+    return (tokens if tokens is not None else embeds).device
+
+
 def forward(
-    params, cfg: ArchConfig, *, tokens, collect_kv=False, cache_pad_to=None,
-    attn_impl="dense", q_chunk=512, kv_chunk=1024, causal_skip=None,
-    kernels=None,
+    params, cfg: ArchConfig, *, tokens=None, embeds=None, vision_embeds=None,
+    collect_kv=False, cache_pad_to=None, attn_impl="dense", q_chunk=512,
+    kv_chunk=1024, causal_skip=None, kernels=None,
 ):
     """Full-sequence forward.  Returns (logits, caches|None, aux).
 
-    ``collect_kv`` also returns each block's K/V stacked over groups,
-    (groups, B, S, KV, dh), zero-padded along S to ``cache_pad_to`` (a
+    ``tokens`` (B, S), or ``embeds`` (B, S, d) for an embedding-input
+    arch; ``vision_embeds`` (B, vision_tokens, d) for a cross-attention
+    arch.  ``collect_kv`` also returns each block's K/V stacked over
+    groups, (groups, B, S, KV, dh), a self-attention block's zero-padded
+    along S to ``cache_pad_to`` (a cross-attention block's vision K/V
+    keeps its ``vision_tokens`` rows, as ``cache_layout`` has them; a
     Mamba block: its conv and SSD state, stacked, not padded).
     ``kernels`` (None inherits ``cfg.kernels``) picks, under
     ``attn_impl="flash"``, the flash kernel or its plain version, for
@@ -370,18 +447,18 @@ def forward(
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
-    _check_ported(cfg, plans)
-    mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
-    x = L.embed_lookup(params["embed"]["embedding"], tokens)
+    mode = resolve_mode(cfg.kernels if kernels is None else kernels,
+                        _input_device(tokens, embeds))
+    x = _embed_input(params, cfg, tokens, embeds)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     kvs, auxs = [], []
     for g in range(_num_groups(params)):
         x, kv, aux = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
-            positions=positions, collect_kv=collect_kv, attn_impl=attn_impl,
-            q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
-            kernels=mode,
+            positions=positions, vision_embeds=vision_embeds, collect_kv=collect_kv,
+            attn_impl=attn_impl, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            causal_skip=causal_skip, kernels=mode,
         )
         kvs.append(kv)
         auxs.append(aux)
@@ -393,9 +470,10 @@ def forward(
         caches = {}
         for name in kvs[0]:
             caches[name] = {}
+            self_attn = plans[int(name.removeprefix("block"))].mixer == "attn"
             for key in kvs[0][name]:
                 t = torch.stack([kv[name][key] for kv in kvs])
-                if key in ("k", "v") and cache_pad_to is not None and t.shape[2] < cache_pad_to:
+                if self_attn and cache_pad_to is not None and t.shape[2] < cache_pad_to:
                     pad = t.new_zeros(t.shape[:2] + (cache_pad_to - t.shape[2],) + t.shape[3:])
                     t = torch.cat([t, pad], dim=2)
                 caches[name][key] = t
@@ -419,8 +497,10 @@ class Transformer(torch.nn.Module):
     def params(self) -> PyTree:
         return _from_module(self.tree)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.params, self.cfg, tokens=tokens)[0]
+    def forward(self, tokens: torch.Tensor | None = None, *, embeds=None,
+                vision_embeds=None) -> torch.Tensor:
+        return forward(self.params, self.cfg, tokens=tokens, embeds=embeds,
+                       vision_embeds=vision_embeds)[0]
 
 
 def _to_module(tree: dict) -> torch.nn.Module:
@@ -465,12 +545,14 @@ def _emit_logits(params, cfg: ArchConfig, x, kernels: str = "plain"):
 
 
 def decode_step(
-    params, caches, cfg: ArchConfig, *, tokens, lengths=None,
+    params, caches, cfg: ArchConfig, *, tokens=None, embeds=None, lengths=None,
     attn_impl="dense", kv_chunk=1024, kernels=None,
 ):
-    """One-token step.  tokens: (B,) int; lengths: (B,) int32 current
-    context length per sequence (the cache write position).  Returns
-    (logits (B, V) fp32, caches), the caches updated in place.
+    """One-token step.  tokens: (B,) int (or embeds (B, 1, d) for an
+    embedding-input arch); lengths: (B,) int32 current context length per
+    sequence (the cache write position).  Returns (logits (B, V) fp32,
+    caches), the caches updated in place; a cross-attention block reads
+    the vision K/V of the cache and leaves it as it is.
 
     ``kernels`` (None inherits ``cfg.kernels``) selects the per-op
     implementations (see ``repro_torch.kernels``): ``"cuda"`` runs the
@@ -481,12 +563,15 @@ def decode_step(
     the decode-attention kernel does not run."""
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
-    _check_ported(cfg, plans)
-    mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
-    x = L.embed_lookup(params["embed"]["embedding"], tokens)[:, None, :]
-    bsz = tokens.shape[0]
+    device = _input_device(tokens, embeds)
+    mode = resolve_mode(cfg.kernels if kernels is None else kernels, device)
+    if cfg.embeds_input:
+        x = _embed_input(params, cfg, embeds=embeds)
+    else:
+        x = _embed_input(params, cfg, tokens)[:, None, :]
+    bsz = x.shape[0]
     if lengths is None:
-        lengths = torch.zeros((bsz,), dtype=torch.int32, device=tokens.device)
+        lengths = torch.zeros((bsz,), dtype=torch.int32, device=device)
     lengths = lengths.to(torch.int32)
     positions = lengths[:, None]
     kv_len = (lengths + 1)[:, None]  # (B,1) valid kv after the write
@@ -500,22 +585,28 @@ def decode_step(
     return _emit_logits(params, cfg, x, mode), caches
 
 
-def _cache_seq_len(caches):
-    for blk in caches.values():
-        if "k" in blk:
-            return blk["k"].shape[2]
+def _cache_seq_len(caches, plans):
+    """Rows of the cache's self-attention K/V (None without one): never
+    a cross-attention block's, whose rows are the vision tokens."""
+    for i, plan in enumerate(plans):
+        if plan.mixer == "attn":
+            return caches[f"block{i}"]["k"].shape[2]
     return None
 
 
 def prefill_step(
-    params, caches, cfg: ArchConfig, *, tokens, pos: int = 0,
-    attn_impl="dense", q_chunk=512, kv_chunk=1024,
+    params, caches, cfg: ArchConfig, *, tokens=None, embeds=None, pos: int = 0,
+    vision_embeds=None, attn_impl="dense", q_chunk=512, kv_chunk=1024,
     logits_at: int | None = None, kernels=None,
 ):
     """Chunked prefill: process a prompt chunk at offset ``pos``.
 
-    tokens: (B, C).  Writes the chunk's K/V into ``caches`` in place at
-    [pos, pos + C), which must lie inside the cache.  Returns (logits
+    tokens: (B, C) (or embeds (B, C, d) for an embedding-input arch).
+    Writes the chunk's K/V into ``caches`` in place at [pos, pos + C),
+    which must lie inside the cache.  A cross-attention arch's chunk
+    given ``vision_embeds`` (B, vision_tokens, d) attends to them and
+    writes their K/V into the cache; a chunk without them attends to the
+    vision K/V already there.  Returns (logits
     (B, V), caches) -- logits at the chunk's last position, or at index
     ``logits_at`` when given (a ragged prompt tail padded to one masked
     chunk reads its logits at the last *real* position; pad queries only
@@ -537,20 +628,20 @@ def prefill_step(
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
-    _check_ported(cfg, plans)
-    mode = resolve_mode(cfg.kernels if kernels is None else kernels, tokens.device)
-    x = L.embed_lookup(params["embed"]["embedding"], tokens)
+    mode = resolve_mode(cfg.kernels if kernels is None else kernels,
+                        _input_device(tokens, embeds))
+    x = _embed_input(params, cfg, tokens, embeds)
     s = x.shape[1]
     positions = (pos + torch.arange(s, device=x.device))[None, :]
     # Whole-cache prefill (pos 0, chunk covers the buffer): nothing to mask.
-    full_cover = pos == 0 and _cache_seq_len(caches) == s
+    full_cover = pos == 0 and _cache_seq_len(caches, plans) == s
     kv_len = None if full_cover else pos + s
     for g in range(_num_groups(params)):
         x, _, _ = _apply_group(
             _group(params["blocks"], g), x, cfg, plans,
             positions=positions, group_cache=_group(caches, g),
-            cache_pos=pos, kv_len=kv_len, attn_impl=attn_impl,
-            q_chunk=q_chunk, kv_chunk=kv_chunk, kernels=mode,
+            cache_pos=pos, kv_len=kv_len, vision_embeds=vision_embeds,
+            attn_impl=attn_impl, q_chunk=q_chunk, kv_chunk=kv_chunk, kernels=mode,
         )
     at = s - 1 if logits_at is None else logits_at
     x = _norm(cfg, params.get("final_norm"), x[:, at : at + 1, :])  # row-wise
@@ -669,10 +760,11 @@ def make_decode_cell(
     of the shard, copied in place -- then runs its layer groups on the
     microbatch's ``microbatch`` cache rows, a view of the shard.
     ``kernels`` is the resolved mode: ``"cuda"`` reads attention through
-    the fused decode-attention kernel.
+    the fused decode-attention kernel.  A cross-attention block reads
+    its vision K/V and writes none, as the reference's
+    ``scatter_decode_rows`` leaves them.
     """
     plans = block_plans(cfg)
-    _check_ported(cfg, plans)
 
     def cell_fn(const, state, item):
         b = G.current_item()

@@ -160,7 +160,9 @@ class _EngineBase:
 
     def __init__(self, params, cfg: ArchConfig, scfg: ServeConfig, device):
         if cfg.embeds_input:
-            raise ValueError("the engine serves token-input archs")
+            raise ValueError(
+                f"{cfg.name} takes embeddings, and its frontend is a stub: the engines "
+                "serve token-input archs, as the JAX package's do")
         L.check_attn_impl(scfg.attn_impl)
         self.device = resolve_device(device)
         table = params["embed"]["embedding"]
@@ -432,12 +434,18 @@ def decode_copy_bytes_per_tick(
 
     The decode cells write one cache row per sequence and layer, in place
     (``models.transformer.scatter_decode_rows``), so a tick writes the
-    ``max_len=1`` cache layout: its bytes over ``num_cells``.
-    ``row_scatter=False`` models the slab scheme the reference replaced
-    (the microbatch's whole cache block sliced out and written back): the
-    layout at full ``max_len``, a ``max_len`` times larger term.
+    ``max_len=1`` cache layout: its bytes over ``num_cells``.  A
+    cross-attention block's vision K/V never changes in decode, so its
+    leaves are not in that row set.  ``row_scatter=False`` models the
+    slab scheme the reference replaced (the microbatch's whole cache
+    block sliced out and written back, vision K/V included): the layout
+    at full ``max_len``, a ``max_len`` times larger term.
     """
     layout = T.cache_layout(cfg, microbatch, 1 if row_scatter else max_len)
+    if row_scatter:
+        plans = T.block_plans(cfg)
+        layout = {key: blk for key, blk in layout.items()
+                  if plans[int(key.removeprefix("block"))].mixer != "cross_attn"}
     total = sum(leaf.numel() * leaf.element_size() for leaf in P.leaves(layout))
     return total // num_cells
 

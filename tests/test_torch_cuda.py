@@ -1257,3 +1257,127 @@ def test_moonlight_layer_decode_routes_equal_the_plain_path():
         assert torch.equal(r_cuda[0][key], r_plain[0][key])
     top = want.abs().amax(dim=-1, keepdim=True)
     assert bool(((got - want).abs() <= 1e-4 * top).all())
+
+
+# ---------------------------------------------------------------------------
+# The zoo's last two input kinds: llama-3.2-vision's cross-attention
+# shapes and musicgen-medium's widths, then both smoke models on the card
+# against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq", [1, 128])
+def test_flash_attention_cross_shapes_match_plain(dtype, sq):
+    """llama-3.2-vision's cross-attention: B 8, 64 heads over 8 KV heads
+    of 128, every query against all 1601 vision keys (not a multiple of
+    the 64-key tile), non-causal; Sq 1 is a decode step's, 128 a prefill
+    chunk's."""
+    q, k, v = _flash_args(_gen(20), 8, sq, 1601, 64, 8, 128, dtype)
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+    assert K.LAUNCHES["attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_attention_musicgen_mha_matches_plain(dtype):
+    """musicgen-medium's 24 heads of 64, one KV head each, over a
+    1024-row cache; row 0 a fresh admission."""
+    s = 1024
+    args, pos, kv_len = _decode_args(_gen(21), 8, s, 24, 24, 64, dtype,
+                                     [0, s - 1, 517, 128, 64, 900, 1000, 3])
+    got = fused_decode_attention(*args, pos=pos, kv_len=kv_len)
+    want = decode_attention_ref(*args, pos=pos, kv_len=kv_len)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert K.LAUNCHES["decode_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(8, 1536), (128, 1536), (8, 8192), (128, 8192)], ids=str)
+def test_rmsnorm_zoo_widths_match_plain(dtype, shape):
+    """The block pre-norms of musicgen-medium (d 1536) and
+    llama-3.2-vision (d 8192) at a decode step's 8 rows and a 128-token
+    chunk's."""
+    gen = _gen(22)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    scale = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.2 + 1
+    got = rmsnorm(x, scale, 1e-5)
+    torch.testing.assert_close(got.float(), rmsnorm_ref(x, scale, 1e-5).float(), **RMS_TOL[dtype])
+    assert K.LAUNCHES["rmsnorm"] == 1
+
+
+def _zoo_smoke(arch):
+    """The arch's smoke config at widths the kernels take (heads of 64;
+    llama-3.2-vision with 100 vision tokens and its gates set nonzero),
+    fp32, on the CPU and on the card: the same weights."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, map_tree
+
+    over = dict(d_model=256, head_dim=64, dtype=torch.float32)
+    if arch == "llama-3.2-vision-90b":
+        over["vision_tokens"] = 100
+    cfg = smoke_config(get_config(arch)).with_overrides(**over)
+    cpu = init_params(T.model_layout(cfg), seed=0, device="cpu")
+    for blk in cpu["blocks"].values():
+        if "xattn_gate" in blk:
+            blk["xattn_gate"]["gate"].fill_(0.8)
+    return cfg, cpu, map_tree(lambda t: t.to("cuda"), cpu)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-medium"])
+def test_zoo_prefill_and_decode_on_the_card_match_the_cpu(arch):
+    """A 40-row chunk at 0 (llama-3.2-vision: with fresh vision embeds),
+    a 24-row chunk at 40 (reading the cached vision K/V) and two decode
+    steps, each fed a window of one longer sequence (musicgen's frames
+    a strided view): the card with the kernels (flash for every prefill attention
+    and for the decode steps' cross-attention) against the CPU's plain
+    ops, logits and every cache leaf within 1e-4; exact launches."""
+    from repro_torch.models import transformer as T
+
+    cfg, cpu, card = _zoo_smoke(arch)
+    vision = arch == "llama-3.2-vision-90b"
+    gen = torch.Generator().manual_seed(23)
+    b = 3
+    feed = (torch.randn((b, 66, cfg.d_model), generator=gen) if cfg.embeds_input
+            else torch.randint(1, cfg.vocab_size, (b, 66), generator=gen))
+    ve = torch.randn((b, cfg.vision_tokens, cfg.d_model), generator=gen) if vision else None
+    caches = {"cpu": T.init_cache(cfg, b, 96, device="cpu"),
+              "cuda": T.init_cache(cfg, b, 96, device="cuda")}
+    plans = T.block_plans(cfg)
+    groups = cfg.num_layers // len(plans)
+    own = groups * sum(p.mixer == "attn" for p in plans)
+    cross = groups * sum(p.mixer == "cross_attn" for p in plans)
+
+    feeds = {"cpu": feed, "cuda": feed.to("cuda")}
+
+    def call(dev, lo, hi, fresh):
+        p, kernels = (card, "cuda") if dev == "cuda" else (cpu, "plain")
+        x = feeds[dev][:, lo:hi]  # a strided window of the sequence
+        key = "embeds" if cfg.embeds_input else "tokens"
+        if hi - lo > 1:
+            return T.prefill_step(p, caches[dev], cfg, **{key: x}, pos=lo, kernels=kernels,
+                                  attn_impl="flash" if dev == "cuda" else "dense",
+                                  vision_embeds=ve.to(dev) if fresh else None)[0]
+        if not cfg.embeds_input:
+            x = x[:, 0]
+        lengths = torch.full((b,), lo, dtype=torch.int32, device=dev)
+        return T.decode_step(p, caches[dev], cfg, **{key: x}, lengths=lengths, kernels=kernels,
+                             attn_impl="flash" if dev == "cuda" else "dense")[0]
+
+    norms = 2 * cfg.num_layers
+    for lo, hi, fresh in ((0, 40, vision), (40, 64, False), (64, 65, False), (65, 66, False)):
+        K.reset_launches()
+        got = call("cuda", lo, hi, fresh)
+        want = call("cpu", lo, hi, fresh)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        expected = ({"decode_attention": 0, "emit_norm_logits": 0, "attention": own + cross,
+                     "ssd": 0, "rmsnorm": norms} if hi - lo > 1 else
+                    {"decode_attention": own, "emit_norm_logits": 1, "attention": cross,
+                     "ssd": 0, "rmsnorm": norms})
+        assert K.LAUNCHES == expected, (lo, K.LAUNCHES)
+    for name, blk in caches["cpu"].items():
+        for key, t in blk.items():
+            torch.testing.assert_close(caches["cuda"][name][key].cpu(), t, atol=1e-4, rtol=1e-4)

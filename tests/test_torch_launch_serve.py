@@ -7,8 +7,9 @@ smoke config with its dtype set to fp32 here: the CLI keeps the
 reference's flags, which have none for the dtype); ``--chaos raise@1``
 gives the fault-free tokens with no request lost.  Also: the flags the
 port changes (``--device``, ``--kernels``), the MoE archs at smoke size,
-the archs it cannot serve, the schedule suggestion and ``param_count``
-against the JAX package's.
+llama-3.2-vision (served without vision embeds) and musicgen (which it
+cannot serve: embedding inputs), the schedule suggestion and
+``param_count`` against the JAX package's for every arch of the zoo.
 """
 import ast
 import re
@@ -127,9 +128,27 @@ def test_moe_archs_serve_at_smoke_size(arch, layers, capsys):
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-medium"])
-def test_unported_archs_exit_naming_the_roadmap(arch):
-    with pytest.raises(SystemExit, match="ROADMAP A9"):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+def test_vision_arch_serves_and_embeds_arch_exits(arch, capsys):
+    """llama-3.2-vision serves text prompts at smoke size, sequential and
+    over two Future stages with the same greedy tokens at fp32 (no vision
+    embeds, as the JAX engines serve it: tests/test_torch_cross_attn.py);
+    musicgen exits, as the reference's CLI does, naming the embedding
+    frontend stub (tests/test_torch_embeds.py)."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3", "--max-new", "3",
+            "--max-batch", "2", "--max-len", "32", "--prompt-len", "9", "--prefill-chunk", "4"]
+    if arch == "musicgen-medium":
+        with pytest.raises(SystemExit, match="embedding frontend stub"):
+            serve.main(argv)
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve, "smoke_config",
+                   lambda cfg: smoke_config(cfg).with_overrides(dtype=torch.float32))
+        seq = _tokens(serve.main(argv))
+        stream = _tokens(serve.main(argv + ["--engine", "stream", "--devices", "2",
+                                            "--cells", "2", "--microbatches", "2"]))
+    assert len(seq) == 3 and all(len(t) == 3 for t in seq.values())
+    assert stream == seq
+    assert f"arch={arch}" in capsys.readouterr().out
 
 
 def test_bad_chaos_spec_exits():
@@ -139,8 +158,7 @@ def test_bad_chaos_spec_exits():
         serve.main(BASE + ["--chaos", "meteor@1"])
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in (
-    "llama-3.2-vision-90b", "musicgen-medium")])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_count_equals_jax(arch):
     got = param_count(T.model_layout(get_config(arch)))
     assert got == jax_param_count(JT.model_layout(jax_get_config(arch))) > 0

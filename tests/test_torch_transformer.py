@@ -183,14 +183,6 @@ def test_prefill_past_cache_end_raises():
         T.prefill_step(tp, tc, tcfg, tokens=torch.ones((1, 4), dtype=torch.long), pos=8)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-medium"])
-def test_unported_families_raise(arch):
-    """Cross-attention and embedding inputs (mamba2-1.3b is ported:
-    tests/test_torch_ssm.py; the MoE families: tests/test_torch_moe.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        T.model_layout(smoke_config(get_config(arch)))
-
-
 def test_block_plans_match_jax():
     from repro.configs.registry import ARCH_IDS
     for arch in ARCH_IDS:

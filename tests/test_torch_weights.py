@@ -31,7 +31,8 @@ def _flat(tree, prefix=()):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-32b", "qwen1.5-4b", "moonshot-v1-16b-a3b",
-                                  "llama4-maverick-400b-a17b", "jamba-1.5-large-398b"])
+                                  "llama4-maverick-400b-a17b", "jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b", "musicgen-medium"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_params_from_numpy_bit_identical(arch, dtype):
     jdt, tdt = DTYPES[dtype]
