@@ -64,7 +64,7 @@
    plain path's; layer 0's ``moe_apply`` on 8 and on 128 tokens, 20
    calls bitwise equal with no host sync; the StreamEngine, each round
    under the sync guard, Lazy with 4 cells and 1 microbatch (the
-   Engine's tokens), then, on the first 24 layers, Lazy with 8 cells and
+   Engine's tokens), then, on the first 8 layers, Lazy with 8 cells and
    4 microbatches, and Future on 4 stage streams (gpipe) with the same
    cells and microbatches (the Lazy run's tokens).
 8a. llama-3.2-vision-90b at every published width, cut to 20 layers (4
@@ -107,6 +107,24 @@
    stream while other work runs there, against the same computation run
    directly (bitwise).
 
+10. Training at full width and depth: OLMo-1B (16 layers, 1,176,764,416
+   parameters in bf16, random from seed 0).  a, ``make_train_step``
+   refuses ``kernels="cuda"`` and the kernel guard stops a forward under
+   autograd with ``kernels="cuda"``; b, 20 AdamW steps (lr 3e-4, 5 warmup
+   steps) of 8 x 2048 synthetic tokens in 2 microbatches, remat, chunked
+   attention: finite losses, the last five at least 0.5 nat below step
+   1's, step p50, tokens/s, peak memory; c, ``ResilientLoop`` over 10
+   steps with a checkpoint every 4 and a fault at step 6, against a
+   fault-free 10-step run from the same start, bitwise, under
+   ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+   is set before CUDA starts); d, ``pipeline_apply`` over the 16 layers
+   (4 microbatches of 2 x 2048, bf16, remat) under Lazy, Future on 4
+   stage streams with ``backward="autodiff"`` and with ``"planned"``,
+   one_f_one_b (4 stages of 4 layers) and interleaved (8 of 2): outputs
+   and gradients bitwise equal, peak memory beside the stash bound, the
+   stages' overlap.  The launch counters read 0 throughout: training
+   runs the plain ops.
+
 Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
 11), twice: the two runs must give the same tokens (the sampling key is
 a function of seed, request and token index), with the launch counts of
@@ -120,6 +138,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -128,6 +147,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# The training phase's fault replay runs under
+# torch.use_deterministic_algorithms(True), which needs cuBLAS's
+# deterministic workspace, set before CUDA is first touched.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # dense bf16 tensor cores; fp32 outside them; fp32-accurate products on
@@ -2073,8 +2096,8 @@ def run_moonlight(smi) -> dict:
     ``kernels="cuda"``) with exact launch counts; the decode step and
     the prefill chunk against the plain path, routes included;
     ``moe_apply`` repeatable; the StreamEngine under Lazy (4 cells, 1
-    microbatch: the Engine's tokens; on the first 24 layers, 8 cells, 4
-    microbatches) and Future (the first 24 layers, 4 stages, gpipe, 8
+    microbatch: the Engine's tokens; on the first 8 layers, 8 cells, 4
+    microbatches) and Future (the first 8 layers, 4 stages, gpipe, 8
     cells, 4 microbatches: the Lazy run's tokens).
     Returns the launch counts summed over the served runs."""
     from repro_torch.configs.registry import get_config
@@ -2112,24 +2135,25 @@ def run_moonlight(smi) -> dict:
     if a != engine_tokens:
         fail("moonlight stream engine a: tokens differ from the Engine's")
     print(f"moonlight stream engine a: tokens identical to the Engine's ({n}/{n})", flush=True)
-    # b and c at half depth, the first 24 layers (views of the weights):
-    # a holds the full depth to the Engine's tokens, and b and c are held
-    # to each other
-    cut = layers // 2
-    half = {**params, "blocks": map_tree(lambda t: t[:cut], params["blocks"])}
+    # b and c on the first 8 layers, one a cell (views of the weights),
+    # which keeps the script near half its time limit beside the
+    # training phase: a holds the full depth to the Engine's tokens, and
+    # b and c are held to each other
+    cut = 8
+    front = {**params, "blocks": map_tree(lambda t: t[:cut], params["blocks"])}
     pipe = dict(num_cells=8, microbatches=4)
-    b, launches = run_stream_engine(cfg.with_overrides(num_layers=cut), half,
+    b, launches = run_stream_engine(cfg.with_overrides(num_layers=cut), front,
                                     f"moonlight b: Lazy, {cut} layers, 8 cells, 4 microbatches",
                                     smi, **pipe)
     add(launches)
-    c, launches = run_stream_engine(cfg.with_overrides(num_layers=cut), half,
+    c, launches = run_stream_engine(cfg.with_overrides(num_layers=cut), front,
                                     f"moonlight c: Future, {cut} layers, 4 stages, gpipe", smi,
                                     stages=4, schedule="gpipe", overlap=True, **pipe)
     add(launches)
     if c != b:
         fail("moonlight stream engine c: tokens differ from the Lazy run b's")
     print("moonlight stream engine c: tokens identical to b's", flush=True)
-    del params, half
+    del params, front
     free_card()
     return total
 
@@ -2440,6 +2464,328 @@ def run_musicgen(smi) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Training phase: full-width, full-depth OLMo-1B
+# ---------------------------------------------------------------------------
+
+OLMO_PARAMS = 1_176_764_416
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 2, 20
+# the dense bf16 tensor-core rate the derived share is read against
+DENSE_BF16 = PEAK_OPS["bfloat16"]
+
+
+def check_no_launches(label) -> None:
+    from repro_torch import kernels as K
+
+    if K.LAUNCHES != NO_LAUNCHES:
+        fail(f"{label}: training launched kernels {K.LAUNCHES}; it runs the plain ops")
+
+
+def train_setup(cfg):
+    """The trainer's configs and step-keyed batches on the card."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    tcfg = TrainConfig(num_microbatches=TRAIN_MICRO, attn_impl="chunked", remat=True)
+    ocfg = AdamWConfig(learning_rate=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS)
+    source = make_source(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0,
+                                    vocab_size=cfg.vocab_size))
+
+    def batch_fn(step):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in source.batch(step).items()}
+
+    return tcfg, ocfg, batch_fn
+
+
+def run_train_refusals(cfg, params, tcfg, ocfg, batch) -> None:
+    """a. ``kernels="cuda"`` refused by ``make_train_step``, and a forward
+    on parameters that require grad with ``kernels="cuda"`` stopped by the
+    kernel guard (the flash kernel is the first CUDA op an OLMo block
+    reaches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import pytree as P
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+
+    for backward in ("autodiff", "planned"):
+        try:
+            make_train_step(cfg, dataclasses.replace(tcfg, kernels="cuda",
+                                                     pipeline_backward=backward), ocfg)
+        except ValueError as e:
+            print(f"training refuses kernels='cuda' (pipeline_backward={backward}): {e}",
+                  flush=True)
+        else:
+            fail(f"make_train_step accepted kernels='cuda' with pipeline_backward={backward}")
+    leaves, treedef = P.flatten(params)
+    rg = P.unflatten(treedef, [t.detach().requires_grad_(True) for t in leaves])
+    try:
+        with torch.enable_grad():
+            T.forward(rg, cfg, tokens=batch["tokens"][:1, :128], attn_impl="flash",
+                      kernels="cuda")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"kernel guard: {e}", flush=True)
+    else:
+        fail("a forward under autograd with kernels='cuda' was not stopped by the kernel guard")
+
+
+def run_trainer(cfg, params, opt, step_fn, batch_fn, smi):
+    """b. 20 AdamW steps; every loss finite, steps 16-20 at least 0.5 nat
+    below step 1; zero kernel launches after every step."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels as K
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        batch = batch_fn(step)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        check_no_launches(f"train step {step}")
+        losses.append(float(metrics["loss"]))
+        print(f"train step {step} ({smi}): loss {losses[-1]:.4f} grad norm "
+              f"{float(metrics['grad_norm']):.4f} lr {float(metrics['learning_rate']):.3e} "
+              f"{times[-1] * 1e3:.1f} ms", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training: a loss is not finite: {losses}")
+    tail = statistics.mean(losses[-5:])
+    if tail > losses[0] - 0.5:
+        fail(f"training: steps 16-20 average {tail:.4f}, not 0.5 nat below step 1's "
+             f"{losses[0]:.4f}")
+    p50 = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training {cfg.name} ({smi}): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens ({TRAIN_MICRO} microbatches, remat, attn chunked, AdamW fp32 moments): "
+          f"loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; step p50 {p50 * 1e3:.1f} ms "
+          f"(host clock, synchronised; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); "
+          f"{tokens / p50:.0f} tokens/s; peak memory {peak / 1e9:.2f} GB "
+          f"({(peak - base) / 1e9:.2f} GB above the weights and state); derived dense-bf16 "
+          f"share 6*N*T/(p50 * 989e12) = {6 * OLMO_PARAMS * tokens / (p50 * DENSE_BF16):.4f} "
+          f"(attention left out)", flush=True)
+    return params, opt
+
+
+def run_fault_replay(cfg, params, opt, step_fn, batch_fn, smi) -> None:
+    """c. ``ResilientLoop`` over 10 steps, a checkpoint every 4 and a fault
+    injected at step 6, against a fault-free 10-step run from the same
+    start: final parameters and optimizer state bitwise equal, under
+    ``torch.use_deterministic_algorithms(True)``."""
+    import shutil
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import pytree as P
+    from repro_torch.resilience import InjectedFault, OneShotInjector
+    from repro_torch.train import Checkpointer, FaultConfig, ResilientLoop
+
+    steps = 10
+    torch.use_deterministic_algorithms(True)
+    try:
+        K.reset_launches()
+        t = time.perf_counter()
+        p_ref, o_ref = params, opt
+        for step in range(steps):
+            p_ref, o_ref, _ = step_fn(p_ref, o_ref, batch_fn(step))
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t
+        directory = ROOT / "build" / "train_ckpt_smoke"
+        shutil.rmtree(directory, ignore_errors=True)
+        ckpt = Checkpointer(str(directory), keep=1)
+        saves = []
+        save = ckpt.save
+
+        def timed_save(step, state, blocking=False):
+            t0 = time.perf_counter()
+            save(step, state, blocking)
+            saves.append(time.perf_counter() - t0)
+
+        ckpt.save = timed_save
+        loop = ResilientLoop(step_fn, ckpt, FaultConfig(checkpoint_every=4, max_restarts=1))
+
+        def fault(_):
+            raise InjectedFault("injected at step 6")
+
+        t = time.perf_counter()
+        p_got, o_got, reached, history = loop.run(
+            params, opt, batch_fn, steps, fail_injector=OneShotInjector(6, fault))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        check_no_launches("fault replay")
+        if loop.stats["restarts"] != 1 or reached != steps or len(history) != steps:
+            fail(f"fault replay: restarts {loop.stats['restarts']}, reached {reached}, "
+                 f"{len(history)} history entries")
+        pairs = list(zip(P.leaves((p_got, o_got)), P.leaves((p_ref, o_ref))))
+        if not all(torch.equal(a, b) for a, b in pairs):
+            bad = sum(not torch.equal(a, b) for a, b in pairs)
+            fail(f"fault replay: {bad}/{len(pairs)} leaves of the final params and optimizer "
+                 "state differ from the fault-free run's")
+        nbytes = tree_bytes((p_got, o_got))
+        print(f"fault replay {cfg.name} ({smi}): fault at step 6, restored step 4 in "
+              f"{loop.restore_seconds[0]:.2f} s ({nbytes / 1e9:.2f} GB of params and AdamW "
+              f"state), {len(saves)} saves taking {sum(saves):.2f} s of the loop's host time "
+              f"(device->host copy; the write runs on a host future), loop {loop_s:.1f} s "
+              f"against {clean_s:.1f} s fault-free; final params and optimizer state bitwise "
+              f"equal to the fault-free run's ({len(pairs)} leaves), deterministic algorithms on",
+              flush=True)
+        shutil.rmtree(directory, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def olmo_stage_fn(cfg):
+    """A pipeline stage of OLMo: its layer groups in order (chunked
+    attention, the plain ops)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    plans = T.block_plans(cfg)
+
+    def stage_fn(stage_params, x):
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        per = next(iter(stage_params["block0"]["attn"].values())).shape[0]
+        for i in range(per):
+            x, _, _ = T._apply_group(T._group(stage_params, i), x, cfg, plans,
+                                     positions=positions, attn_impl="chunked",
+                                     kernels="plain")
+        return x
+
+    return stage_fn
+
+
+def run_planned_backward(cfg, params, smi) -> None:
+    """d. ``pipeline_apply`` over OLMo-1B's 16 layers, 4 microbatches of 2 x
+    2048 in bf16 with remat: Lazy, Future on 4 stage streams with
+    ``backward="autodiff"`` and with ``"planned"``, under one_f_one_b (4
+    stages of 4 layers) and interleaved (8 stages of 2, interleave 2);
+    outputs and gradients (stage params and input) bitwise equal across
+    the three, each run's peak memory beside ``peak_stash_items``, the
+    forward under :class:`no_host_sync`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import pytree as P
+    from repro_torch.core.pipeline import (
+        PipelineConfig, pipeline_apply, pipeline_evaluator, split_stages,
+    )
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (8, TRAIN_SEQ), generator=gen).to("cuda")
+    x0 = L.embed_lookup(params["embed"]["embedding"], tokens).detach()
+    stage_fn = olmo_stage_fn(cfg)
+    for schedule, stages, interleave in (("one_f_one_b", 4, 1), ("interleaved", 8, 2)):
+        split = split_stages(params["blocks"], cfg.num_layers, stages)
+        base = PipelineConfig(num_stages=stages, num_microbatches=4, remat=True,
+                              schedule=schedule, interleave=interleave)
+        results, notes = {}, []
+        for label, backward, devices in (("lazy", "autodiff", None),
+                                         ("future/autodiff", "autodiff", 4),
+                                         ("future/planned", "planned", 4)):
+            pcfg = dataclasses.replace(base, backward=backward)
+            ev = (None if devices is None
+                  else pipeline_evaluator(pcfg, devices, time_units=True))
+            leaves, treedef = P.flatten(split)
+            sp = [t.detach().requires_grad_(True) for t in leaves]
+            x = x0.clone().requires_grad_(True)
+            K.reset_launches()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with torch.enable_grad():
+                with no_host_sync():
+                    out = pipeline_apply(stage_fn, P.unflatten(treedef, sp), x, pcfg,
+                                         stages=devices, evaluator=ev)
+                loss = out.float().square().mean()
+                grads = torch.autograd.grad(loss, sp + [x])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - mem0
+            check_no_launches(f"pipeline {schedule} {label}")
+            results[label] = [out.detach()] + list(grads)
+            if not all(torch.isfinite(g).all() for g in results[label]):
+                fail(f"pipeline {schedule} {label}: a non-finite output or gradient")
+            stash = "-" if devices is None else pcfg.peak_stash_items
+            notes.append(f"{label} peak {peak / 1e9:.2f} GB (stash bound {stash} microbatches "
+                         f"a stage), {secs:.2f} s")
+            if ev is not None:
+                print_overlap([ev.unit_times()], f"pipeline {schedule} {label} (F and B units)",
+                              smi)
+            del out, loss, grads, sp, x
+        ref = results["lazy"]
+        for label in ("future/autodiff", "future/planned"):
+            same = [torch.equal(a, b) for a, b in zip(ref, results[label])]
+            if not all(same):
+                fail(f"pipeline {schedule}: {label} differs from lazy in "
+                     f"{same.count(False)}/{len(same)} of the output and gradients")
+        print(f"pipeline {schedule} ({stages} stages of {cfg.num_layers // stages} layers, "
+              f"interleave {interleave}, 4 microbatches of 2 x {TRAIN_SEQ}, bf16, remat) "
+              f"({smi}): output and {len(ref) - 1} gradients bitwise equal across lazy, "
+              f"future/autodiff and future/planned; " + "; ".join(notes), flush=True)
+        del results, ref, split
+
+
+def run_training(smi) -> None:
+    """10. Training at full width and depth: OLMo-1B (16 layers, d 2048,
+    V 50304 tied; 1,176,764,416 parameters in bf16, random from seed 0):
+    a, the refusals of ``kernels="cuda"``; b, the AdamW trainer, 20 steps
+    of 8 x 2048 tokens in 2 microbatches with remat and chunked
+    attention; c, fault replay under ``ResilientLoop``, bitwise; d, the
+    planned backward through ``pipeline_apply``, bitwise against
+    autodiff and Lazy.  The launch counters stay at zero throughout:
+    training runs the plain ops."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.train import init_opt_state, make_train_step
+
+    started = time.perf_counter()
+    cfg = get_config("olmo-1b")
+    layout = T.model_layout(cfg)
+    if param_count(layout) != OLMO_PARAMS:
+        fail(f"olmo-1b has {param_count(layout)} parameters, expected {OLMO_PARAMS}")
+    params = init_params(layout, seed=0, device="cuda")
+    tcfg, ocfg, batch_fn = train_setup(cfg)
+    run_train_refusals(cfg, params, tcfg, ocfg, batch_fn(0))
+    step_fn = make_train_step(cfg, tcfg, ocfg)
+    # the initial state lives in run_trainer's frame only, as in a
+    # trainer that replaces its state each step (the first params are
+    # kept for d)
+    p_end, o_end = run_trainer(cfg, params, init_opt_state(params, ocfg), step_fn, batch_fn,
+                               smi)
+    run_fault_replay(cfg, p_end, o_end, step_fn, batch_fn, smi)
+    del p_end, o_end
+    free_card()
+    run_planned_backward(cfg, params, smi)
+    del params
+    free_card()
+    print(f"training phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
+          f"launched 0 times", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2565,6 +2911,10 @@ def main() -> int:
 
     # 9. The paper's Stream programs under the Lazy and Future evaluators on the card
     run_stream_phase(smi)
+
+    # 10. Training: full-width OLMo-1B, the trainer, fault replay and the
+    # planned backward; no kernel launches
+    run_training(smi)
 
     source = {
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",

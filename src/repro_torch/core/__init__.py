@@ -16,6 +16,9 @@ Public API (the ported part of ``repro.core``):
     stream, and the pipeline's ring hand-off
   SchedulePlan, build_plan, CombinedPlan, build_combined_plan,
     build_backward_plan — the schedule zoo's tick tables
+  PipelineConfig, pipeline_apply, pipeline_evaluator, split_stages,
+    merge_stages — layer pipelining: a stack of stages as one Stream
+    segment, Lazy or Future (stage streams), autodiff or planned backward
   ChunkPolicy, ScheduleChoice, bubble_fraction, optimal_num_chunks,
     optimal_schedule and the rest of the paper's chunk-size model;
     chunk_axis, unchunk_axis
@@ -42,6 +45,13 @@ from repro_torch.core.graph import (
     lower_chain,
     run_chain_sequential,
 )
+from repro_torch.core.pipeline import (
+    PipelineConfig,
+    merge_stages,
+    pipeline_apply,
+    pipeline_evaluator,
+    split_stages,
+)
 from repro_torch.core.schedules import (
     BACKWARD_MODES,
     SCHEDULES,
@@ -67,6 +77,7 @@ __all__ = [
     "FutureEvaluator",
     "HostFuture",
     "LazyEvaluator",
+    "PipelineConfig",
     "SCHEDULES",
     "ScheduleChoice",
     "SchedulePlan",
@@ -84,11 +95,15 @@ __all__ = [
     "lower_chain",
     "optimal_num_chunks",
     "optimal_schedule",
+    "merge_stages",
+    "pipeline_apply",
+    "pipeline_evaluator",
     "pipeline_step_time",
     "ppermute_future",
     "run_chain_sequential",
     "schedule_bubble_fraction",
     "schedule_peak_items",
     "schedule_ticks",
+    "split_stages",
     "unchunk_axis",
 ]

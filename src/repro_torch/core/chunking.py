@@ -111,7 +111,8 @@ def schedule_peak_items(
     ``backward="planned"`` (default) is the combined plan's own peak —
     the *schedule-level* bound proven by its stash/release columns
     (:class:`repro_torch.core.schedules.CombinedPlan`; the planned
-    backward executor is not ported yet, ROADMAP A10);
+    backward, ``FutureEvaluator(backward="planned")``, realises
+    ``V*M`` at its phase boundary, as the reference's does);
     ``backward="autodiff"`` charges the ``V*M`` that differentiating the
     forward ticks keeps live for *every* schedule.  ``num_sources >
     1`` adds the extra sources' feed storage (multi-injection plans:
@@ -299,14 +300,15 @@ def optimal_schedule(
     (gpipe always costs exactly 1.0; 1F1B costs S/M once M > S, which is
     how it buys bigger M under a budget).  ``None`` means unconstrained.
     ``backward`` selects whose stash is scored, and must match the
-    job's actual execution mode.  ``"autodiff"`` (default, the port's
-    only executed mode) charges every schedule the full ``V*M`` that
+    job's actual execution mode.  ``"autodiff"`` (default) charges
+    every schedule the full ``V*M`` that
     differentiating the forward ticks keeps live, under which no
     schedule buys memory and a tight budget is simply infeasible — the
     honest answer for a default-configured job.  ``"planned"`` scores
     each schedule's combined-plan peak — 1F1B's ``min(S, M)`` advantage,
-    real under the reference's ``FutureEvaluator(backward="planned")``
-    (not ported yet, ROADMAP A10).  (The *descriptive*
+    the plan's bound under ``FutureEvaluator(backward="planned")``
+    (whose two-phase realisation still holds ``V*M`` at the phase
+    boundary, as the reference's does).  (The *descriptive*
     :func:`schedule_peak_items` keeps ``"planned"`` as its default: it
     characterizes the schedule itself; this function makes a decision
     against a budget, so it defaults conservative.)

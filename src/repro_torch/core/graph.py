@@ -83,6 +83,12 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+# torch.utils.checkpoint imports torch._dynamo on its first call, and that
+# import keeps every frame above it alive for the life of the process:
+# the first train step's parameters, activations and gradients with
+# them (24 GB at full-width OLMo-1B).  Imported here, it keeps only
+# module frames.
+import torch._dynamo  # noqa: F401
 import torch.utils.checkpoint
 
 from repro_torch import pytree as P
@@ -554,13 +560,18 @@ def _mask_fn(pred):
 # ---------------------------------------------------------------------------
 
 
+# Set while a planned backward recomputes a unit: the unit is itself the
+# recomputation, so a remat cell runs plainly inside it.
+_NO_REMAT: contextvars.ContextVar[bool] = contextvars.ContextVar("no_remat", default=False)
+
+
 def _checkpoint(fn: Callable) -> Callable:
     """``jax.checkpoint``: recompute ``fn`` on the backward pass instead
     of keeping its activations, when grad is enabled (a plain call
-    otherwise)."""
+    otherwise, and inside a planned backward's unit)."""
 
     def run(*args):
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() and not _NO_REMAT.get():
             return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 

@@ -67,7 +67,12 @@ from repro_torch import resolve_device
 from repro_torch.core import graph as G
 from repro_torch.core.future import ppermute_future, stage_stream
 from repro_torch.core.graph import Stream, StreamResult
-from repro_torch.core.schedules import SchedulePlan, build_plan, validate_backward
+from repro_torch.core.schedules import (
+    SchedulePlan,
+    build_backward_plan,
+    build_plan,
+    validate_backward,
+)
 
 PyTree = Any
 CellFn = Callable[[PyTree, PyTree], tuple[PyTree, PyTree]]
@@ -264,9 +269,14 @@ class FutureEvaluator:
     the loop syncs the host with the card.  On the CPU the stages run
     as logical stages in tick order, with no streams and no events.
 
-    ``backward="autodiff"`` lets autograd differentiate the eager ops;
-    ``"planned"`` (the combined-plan backward) is not ported
-    (ROADMAP A10).  ``time_units=True`` records a pair of timing events
+    ``backward="autodiff"`` lets autograd differentiate the eager ops.
+    ``"planned"`` runs the backward as scheduled work, the port of the
+    reference's custom VJP: a ``torch.autograd.Function`` whose forward
+    runs the plan's F units and stashes each unit's input, and whose
+    backward replays :func:`~repro_torch.core.schedules.
+    build_backward_plan`'s B units on the same stage streams (see
+    :meth:`_run_chain_planned`); its gradients are bitwise those of
+    ``"autodiff"``.  ``time_units=True`` records a pair of timing events
     around every unit on its stage's stream (:meth:`unit_times`).
     """
 
@@ -286,11 +296,7 @@ class FutureEvaluator:
             raise ValueError(f"num_stages must be >= 1, got {num_stages}")
         if schedule != "interleaved" and interleave != 1:
             raise ValueError(f"{schedule=} requires interleave=1, got {interleave}")
-        if validate_backward(backward) == "planned":
-            raise NotImplementedError(
-                "backward='planned' (the combined-plan backward) is not ported "
-                "yet: ROADMAP A10"
-            )
+        self.backward = validate_backward(backward)
         self.num_stages = num_stages
         self.axis_name = axis_name
         self.schedule = schedule
@@ -316,12 +322,12 @@ class FutureEvaluator:
         )
 
     def run_graph(self, stream: Stream) -> StreamResult:
-        states, outs = self._run_chain(stream.lower())
+        states, outs = self._execute(stream.lower())
         return StreamResult(items=outs, states=states)
 
     def __call__(self, program, items: PyTree = None) -> tuple[PyTree, PyTree]:
         chain, legacy = _as_chain(program, items)
-        states, outs = self._run_chain(chain)
+        states, outs = self._execute(chain)
         if legacy:
             return states[0], outs
         return states, outs
@@ -329,7 +335,9 @@ class FutureEvaluator:
     def unit_times(self) -> list[tuple[int, int, float, float]]:
         """``(stage, tick, start_ms, end_ms)`` of every unit of the last
         run with ``time_units``, from the first unit's start; call after
-        the card finished the run (``torch.cuda.synchronize()``)."""
+        the card finished the run (``torch.cuda.synchronize()``).  A
+        planned backward's B units follow the F units, their ticks
+        numbered on from the forward plan's last."""
         if not self._unit_events:
             return []
         ref = self._unit_events[0][2]
@@ -340,7 +348,42 @@ class FutureEvaluator:
 
     # -- chain execution ---------------------------------------------------
 
-    def _run_chain(self, chain: G.ChainProgram) -> tuple[tuple, PyTree]:
+    def _execute(self, chain: G.ChainProgram) -> tuple[tuple, PyTree]:
+        if self.backward == "planned":
+            return self._run_chain_planned(chain)
+        return self._run_chain(chain)
+
+    def _streams(self, device: torch.device):
+        """(caller's stream, stage streams) on a card, every stage stream
+        ordered after the caller's work; (None, [None] * D) elsewhere."""
+        if device.type != "cuda":
+            return None, [None] * self.num_stages
+        caller = torch.cuda.current_stream(device)
+        streams = [stage_stream(device, d) for d in range(self.num_stages)]
+        for st in streams:
+            st.wait_stream(caller)
+        return caller, streams
+
+    def _start_unit(self, stream):
+        if not (self.time_units and stream is not None):
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        return start
+
+    def _end_unit(self, stream, start, d: int, t: int) -> None:
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self._unit_events.append((d, t, start, end))
+
+    def _run_chain(self, chain: G.ChainProgram, stash: dict | None = None,
+                   machinery=None) -> tuple[tuple, PyTree]:
+        """The forward tick loop.  ``stash`` (the planned backward's
+        residuals), when given, receives every unit's input under the
+        key ``(virtual stage, item)``; ``machinery`` is a chain's
+        :func:`~repro_torch.core.graph._chain_cell_machinery`, when the
+        caller already made it."""
         d_, v_ = self.num_stages, self.interleave
         m_ = chain.num_items
         fb = chain.feedback
@@ -395,7 +438,7 @@ class FutureEvaluator:
         interior = [s for s in range(1, len(sources)) if positions[s] != 0]
 
         cell_fn, init_state, const_state, mutable, split_states = (
-            G._chain_cell_machinery(chain)
+            machinery or G._chain_cell_machinery(chain)
         )
         # Each virtual stage's rows: views of the chain's state.
         cuts = [(p * per_group, (p + 1) * per_group) for p in range(d_ * v_)]
@@ -404,13 +447,7 @@ class FutureEvaluator:
         rows = list(rows_in)
 
         device = self.device or _device_of((sources, init_state))
-        if device.type == "cuda":
-            caller = torch.cuda.current_stream(device)
-            streams = [stage_stream(device, d) for d in range(d_)]
-            for st in streams:
-                st.wait_stream(caller)
-        else:
-            caller, streams = None, [None] * d_
+        caller, streams = self._streams(device)
         self._unit_events = []
 
         def item(src, m):
@@ -428,9 +465,7 @@ class FutureEvaluator:
                         continue
                     p = int(plan.group[t, d]) * d_ + d
                     with _on(streams[d]):
-                        if self.time_units and streams[d] is not None:
-                            start = torch.cuda.Event(enable_timing=True)
-                            start.record(streams[d])
+                        start = self._start_unit(streams[d])
                         slot = int(plan.read_slot[t, d])
                         if slot < 0:  # a fresh item of the primary source
                             inp = item(sources[0], m)
@@ -454,6 +489,8 @@ class FutureEvaluator:
                                         "through the same combines)"
                                     )
                                 inp = merged
+                        if stash is not None:
+                            stash[p, m] = inp
                         out, rows[p] = G.scan_cells(
                             cell_fn, mutable, inp, consts[p], rows[p], item=m
                         )
@@ -463,10 +500,7 @@ class FutureEvaluator:
                             out = emitted
                         if plan.collect[t, d]:
                             outs[m] = out
-                        if self.time_units and streams[d] is not None:
-                            end = torch.cuda.Event(enable_timing=True)
-                            end.record(streams[d])
-                            self._unit_events.append((d, t, start, end))
+                        self._end_unit(streams[d], start, d, t)
                     made[d] = ppermute_future(out, streams[d])
                 # The hop of last tick's outputs lands now, after this tick's
                 # reads (a slot read at t may be refilled at t).
@@ -499,6 +533,256 @@ class FutureEvaluator:
         if chain.finalize is not None:
             outs = G.apply_per_item(chain.finalize, outs)
         return split_states(final), outs
+
+
+    # -- planned backward (1F1B B units as scheduled work) -----------------
+
+    def _run_chain_planned(self, chain: G.ChainProgram) -> tuple[tuple, PyTree]:
+        """Execute the chain with the backward pass as scheduled B units.
+
+        The port of the reference's custom VJP, as a
+        ``torch.autograd.Function`` (:class:`_Planned`):
+
+        * **forward** runs the plan's F units (:meth:`_run_chain`, the
+          same tick loop ``"autodiff"`` runs) and stashes every unit's
+          input under ``(virtual stage, item)``: all ``V*M`` of a stage
+          are live at the boundary between the two phases, as in the
+          reference (see :class:`~repro_torch.core.schedules.
+          CombinedPlan`).
+        * **backward** replays :func:`~repro_torch.core.schedules.
+          build_backward_plan`'s B units in its tick order, each on the
+          stage stream of the stage that ran its F unit: the unit
+          recomputes its cell group under ``torch.enable_grad()`` at the
+          stashed input (group-level rematerialisation, so a segment's
+          ``remat`` is moot inside it) and calls ``torch.autograd.grad``;
+          the input cotangent goes one hop down the reverse ring as a
+          :func:`~repro_torch.core.future.ppermute_future`, forced on
+          the consumer's stage stream.  Entry units give the source
+          items' gradients.
+
+        Weight-gradient contributions are staged per (virtual stage,
+        item) and summed per stage with the item descending, as the
+        reference does: the order in which autograd accumulates a leaf
+        used once per item in the forward tick loop, so the gradients are
+        bitwise those of ``backward="autodiff"``.  The staging holds M
+        times a stage's weight gradients.
+
+        The reference's constraints hold: one source, immutable cell
+        state, no ``const_state``, floating-point items, no feedback.
+        Without autograd recording (or with no input that requires
+        grad) the chain runs as under ``"autodiff"``, with no stash.
+        """
+        d_, v_ = self.num_stages, self.interleave
+        if chain.feedback is not None:
+            raise ValueError(
+                "backward='planned' does not support feedback chains "
+                "(decode loops do not train); use backward='autodiff'"
+            )
+        if len(chain.injections) != 1:
+            raise ValueError(
+                "backward='planned' supports single-source chains only "
+                "(the training shape: one stream of microbatches); use "
+                "backward='autodiff' for zip/multi-source programs"
+            )
+        if chain.num_cells % (d_ * v_) != 0:
+            raise ValueError(
+                f"num_cells={chain.num_cells} not divisible by axis "
+                f"'{self.axis_name}' size {d_} x interleave {v_}"
+            )
+        machinery = G._chain_cell_machinery(chain)
+        _, init_state, const_state, mutable, split_states = machinery
+        if mutable:
+            raise ValueError(
+                "backward='planned' requires immutable cell state "
+                "(mutable_state=False): the 1F1B backward runs items in "
+                "ascending order, which is only a valid transpose when "
+                "cells do not mutate state across items; use "
+                "backward='autodiff'"
+            )
+        if const_state is not None:
+            raise ValueError(
+                "backward='planned' does not support const_state segments "
+                "(const leaves are excluded from differentiation by "
+                "construction); put read-only differentiable state in an "
+                "ordinary mutable_state=False segment, or use "
+                "backward='autodiff'"
+            )
+        src = chain.injections[0].materialize()
+        for leaf in P.leaves(src):
+            if not (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()):
+                raise ValueError(
+                    "backward='planned' requires floating-point source "
+                    "items (cotangents ride the same ring buffers)"
+                )
+        G.leading_axis_size(src, "items")
+        if chain.num_cells == 0:
+            return self._run_chain(chain)
+        fed = dataclasses.replace(
+            chain, finalize=None,
+            injections=(dataclasses.replace(chain.injections[0], materialize=lambda: src),),
+        )
+        s_leaves, s_def = P.flatten(init_state)
+        x_leaves, x_def = P.flatten(src)
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in s_leaves + x_leaves
+                        if isinstance(t, torch.Tensor))):
+            _, outs = self._run_chain(fed, machinery=machinery)
+        else:
+            run = _PlannedRun(self, fed, machinery, len(s_leaves))
+            out_leaves = _Planned.apply(run, *s_leaves, *x_leaves)
+            outs = P.unflatten(run.out_def, out_leaves)
+        if chain.finalize is not None:
+            outs = G.apply_per_item(chain.finalize, outs)
+        return split_states(init_state), outs
+
+
+class _PlannedRun:
+    """One planned run: the chain, its cell machinery and what the
+    backward needs from the forward."""
+
+    def __init__(self, ev: FutureEvaluator, chain: G.ChainProgram, machinery, num_state: int):
+        self.ev, self.chain, self.machinery = ev, chain, machinery
+        self.num_state = num_state
+        self.out_def = None
+
+    def forward(self, stash: dict) -> list:
+        _, outs = self.ev._run_chain(self.chain, stash=stash, machinery=self.machinery)
+        leaves, self.out_def = P.flatten(outs)
+        return leaves
+
+    def backward(self, stash: dict, d_outs, needs) -> tuple[list, list]:
+        """The B units; returns the gradients of the state leaves and of
+        the source leaves (None where none is needed)."""
+        ev, chain = self.ev, self.chain
+        d_, v_, m_ = ev.num_stages, ev.interleave, chain.num_items
+        per_group = chain.num_cells // (d_ * v_)
+        cell_fn, init_state, _, _, _ = self.machinery
+        s_leaves, s_def = P.flatten(init_state)
+        src = chain.injections[0].materialize()
+        x_leaves, x_def = P.flatten(src)
+        need_s, need_x = needs[: self.num_state], needs[self.num_state :]
+        diff = [i for i, leaf in enumerate(s_leaves)
+                if need_s[i] and leaf.is_floating_point()]
+        want_src = any(need_x)
+        bplan = build_backward_plan(ev.schedule, d_, m_, v_, ev.plan_for(m_).handoff)
+        fwd_ticks = ev.plan_for(m_).num_ticks
+        seeds = P.unflatten(self.out_def, d_outs)
+
+        caller, streams = ev._streams(_device_of((d_outs, s_leaves)))
+        if caller is not None:
+            for st in streams:
+                for t in _cuda_leaves(seeds):
+                    t.record_stream(st)
+
+        def unit(p: int, m: int, x, g, want_dx: bool):
+            a, b = p * per_group, (p + 1) * per_group
+            rows = [leaf[a:b].detach().requires_grad_(i in diff) if i in diff else leaf[a:b]
+                    for i, leaf in enumerate(s_leaves)]
+            xs = [leaf.detach().requires_grad_(want_dx) for leaf in P.leaves(x)]
+            token = G._NO_REMAT.set(True)
+            try:
+                with torch.enable_grad():
+                    out, _ = G.scan_cells(cell_fn, False, P.unflatten(x_def, xs), None,
+                                          P.unflatten(s_def, rows), item=m)
+            finally:
+                G._NO_REMAT.reset(token)
+            pairs = [(o, c) for o, c in zip(P.leaves(out), P.leaves(g))
+                     if isinstance(o, torch.Tensor) and o.requires_grad]
+            inputs = [rows[i] for i in diff] + (xs if want_dx else [])
+            grads = [None] * len(inputs)
+            if pairs and inputs:
+                grads = list(torch.autograd.grad(
+                    [o for o, _ in pairs], inputs, [c for _, c in pairs], allow_unused=True))
+            grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(inputs, grads)]
+            dw = grads[: len(diff)]
+            dx = P.unflatten(x_def, grads[len(diff):]) if want_dx else None
+            return dw, dx
+
+        dbuf = [[None] * bplan.num_slots for _ in range(d_)]
+        staged: dict[tuple[int, int], list] = {}
+        d_items: list = [None] * m_
+        sent: list = [None] * d_
+        try:
+            for t in range(bplan.num_ticks):
+                made: list = [None] * d_
+                for d in range(d_):
+                    m = int(bplan.microbatch[t, d])
+                    if m < 0:
+                        continue
+                    p = int(bplan.group[t, d]) * d_ + d
+                    with _on(streams[d]):
+                        start = ev._start_unit(streams[d])
+                        slot = int(bplan.read_slot[t, d])
+                        if slot < 0:  # the last stage: the seed d_out[m]
+                            g = P.tree_map(lambda c: c[m], seeds)
+                        else:
+                            if dbuf[d][slot] is None:
+                                raise RuntimeError(
+                                    f"plan fault: stage {d} reads an empty cotangent slot "
+                                    f"{slot} at backward tick {t}"
+                                )
+                            g, dbuf[d][slot] = dbuf[d][slot].force(), None
+                        dw, dx = unit(p, m, stash.pop((p, m)), g, p > 0 or want_src)
+                        staged[p, m] = dw
+                        if bplan.collect[t, d]:
+                            d_items[m] = dx
+                        ev._end_unit(streams[d], start, d, fwd_ticks + t)
+                    made[d] = ppermute_future(dx, streams[d])
+                # The reverse hop: a stage receives from its successor.
+                for d in range(d_):
+                    slot = int(bplan.recv_slot[t, d])
+                    if slot >= 0:
+                        dbuf[d][slot] = sent[(d + 1) % d_]
+                sent = made
+        finally:
+            if caller is not None:
+                for st in streams:
+                    caller.wait_stream(st)
+        if caller is not None:
+            for t in _cuda_leaves((staged, d_items)):
+                t.record_stream(caller)
+
+        # Per stage, the items' contributions summed with the item
+        # descending: autograd's order over the forward tick loop.
+        d_state: list = [None] * len(s_leaves)
+        for j, i in enumerate(diff):
+            parts = []
+            for p in range(d_ * v_):
+                acc = staged[p, m_ - 1][j]
+                for m in range(m_ - 2, -1, -1):
+                    acc = acc + staged[p, m][j]
+                parts.append(acc)
+            d_state[i] = torch.cat(parts, dim=0)
+        d_src = [None] * len(x_leaves)
+        if want_src:
+            cols = [P.leaves(dx) for dx in d_items]
+            d_src = [torch.stack([c[j] for c in cols]) if need_x[j] else None
+                     for j in range(len(x_leaves))]
+        return d_state, d_src
+
+
+class _Planned(torch.autograd.Function):
+    """The planned backward's autograd node: the F units forward, the
+    B units backward (:meth:`FutureEvaluator._run_chain_planned`)."""
+
+    @staticmethod
+    def forward(ctx, run: _PlannedRun, *flat):
+        stash: dict = {}
+        leaves = run.forward(stash)
+        ctx.run, ctx.stash = run, stash
+        return tuple(leaves)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *d_outs):
+        run, stash = ctx.run, ctx.stash
+        ctx.stash = None
+        d_state, d_src = run.backward(stash, list(d_outs), ctx.needs_input_grad[1:])
+        return (None, *d_state, *d_src)
+
+
+def _cuda_leaves(tree: PyTree) -> list[torch.Tensor]:
+    return [t for t in P.leaves(tree) if isinstance(t, torch.Tensor) and t.is_cuda]
 
 
 def _device_of(tree: PyTree) -> torch.device:

@@ -38,6 +38,7 @@ returns ``cudaGetLastError()`` after its launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import importlib
 import os
@@ -106,8 +107,8 @@ def resolve_mode(mode: str, device: str | torch.device) -> str:
 def get_impl(op: str, mode: str = "auto"):
     """The implementation of ``op`` under the ``kernels`` mode.
 
-    ``"cuda"`` returns the kernel's wrapper and raises when no CUDA
-    device is present (it never hands back the plain version);
+    ``"cuda"`` returns the kernel's wrapper behind :func:`no_backward`
+    and raises when no CUDA device is present (it never hands back the plain version);
     ``"plain"`` returns the PyTorch version with the same signature;
     ``"auto"`` is ``"cuda"`` when a CUDA device is present.  Imports
     lazily.
@@ -122,12 +123,43 @@ def get_impl(op: str, mode: str = "auto"):
     if op not in table:
         raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
     module_path, attr = table[op]
-    return getattr(importlib.import_module(module_path), attr)
+    fn = getattr(importlib.import_module(module_path), attr)
+    return _guarded(op, fn) if mode == "cuda" else fn
+
+
+@functools.lru_cache(maxsize=None)
+def _guarded(op: str, fn):
+    return no_backward(op, fn)
 
 
 # ---------------------------------------------------------------------------
 # Build: nvcc -> shared library with a plain C interface -> ctypes
 # ---------------------------------------------------------------------------
+
+def no_backward(op: str, fn):
+    """``fn`` behind the training guard: a call raises when autograd is
+    recording and a tensor argument requires grad.  A kernel wrapper
+    computes through raw pointers into a fresh output, which has no
+    ``grad_fn``; under autograd its result would cut the gradient at the
+    op without an error.  Every CUDA wrapper :func:`get_impl` hands out
+    is behind it; the serving paths pass no tensor that requires grad."""
+
+    @functools.wraps(fn)
+    def guarded(*args, **kwargs):
+        if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in (*args, *kwargs.values())
+        ):
+            raise RuntimeError(
+                f"the {op!r} CUDA kernel was called under autograd with an input that "
+                "requires grad: the port's kernels have no backward.  Train with "
+                "kernels='plain' (make_train_step resolves 'auto' to it), or call the "
+                "kernel under torch.no_grad()"
+            )
+        return fn(*args, **kwargs)
+
+    return guarded
+
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

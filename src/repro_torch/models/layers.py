@@ -136,8 +136,8 @@ def attention_chunked(
     before P.V, as in the JAX package.  ``causal_skip`` (None = auto)
     visits only the KV chunks on or below the diagonal; it applies only
     when ``causal and q_offset == 0 and sq == sk and kv_len is None``.
-    Python loops take the place of the JAX package's scans (no
-    checkpointing: training is not ported yet).
+    Python loops take the place of the JAX package's scans; under
+    training ``forward(remat=True)`` recomputes each layer group.
     """
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]

@@ -125,6 +125,20 @@ def param_count(layout: PyTree) -> int:
     return int(np.prod(layout.shape))
 
 
+def abstract_params(layout: PyTree) -> PyTree:
+    """Stand-ins for ``layout``'s parameters: meta-device tensors of its
+    shapes and dtypes (no allocation), the counterpart of the
+    reference's ``jax.ShapeDtypeStruct`` tree."""
+    return map_tree(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), layout
+    )
+
+
+def cast_layout(layout: PyTree, dtype) -> PyTree:
+    """``layout`` with every :class:`ParamSpec`'s dtype set to ``dtype``."""
+    return map_tree(lambda s: dataclasses.replace(s, dtype=dtype), layout)
+
+
 def params_from_numpy(tree: PyTree, device: str | torch.device = "cuda") -> PyTree:
     """The weight bridge: a parameter tree of numpy arrays -> tensors.
 

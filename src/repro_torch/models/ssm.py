@@ -4,7 +4,8 @@ PyTorch port of ``repro.models.ssm``: the same functions on the same
 parameter dicts, op for op (fp32 upcasts and casts back at the same
 places).  Sequence chunks are the cells of a stream whose carried value
 is the (H, N, P) state; where the JAX package scans the chunks this port
-runs a Python loop (no checkpointing until training is ported).
+runs a Python loop (training recomputes it per layer group:
+``transformer.forward(remat=True)``).
 
 Layout per block (d_inner = expand * d_model, H = d_inner / head_dim):
 

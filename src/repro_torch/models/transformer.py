@@ -425,7 +425,7 @@ def _input_device(tokens, embeds) -> torch.device:
 def forward(
     params, cfg: ArchConfig, *, tokens=None, embeds=None, vision_embeds=None,
     collect_kv=False, cache_pad_to=None, attn_impl="dense", q_chunk=512,
-    kv_chunk=1024, causal_skip=None, kernels=None,
+    kv_chunk=1024, causal_skip=None, kernels=None, remat=True,
 ):
     """Full-sequence forward.  Returns (logits, caches|None, aux).
 
@@ -444,6 +444,11 @@ def forward(
     ``aux`` holds the MoE auxiliary losses: the mean over layer groups of
     each group's mean over its MoE blocks, as the reference's scan
     averages them (zeros for a model without MoE blocks).
+    ``remat`` (the reference's ``jax.checkpoint`` per group): under
+    autograd, each layer group keeps only its input and is recomputed on
+    the backward pass (``graph._checkpoint``, non-reentrant); without
+    autograd it changes nothing.  The reference's ``unroll`` is an XLA
+    knob with no counterpart here.
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
@@ -452,14 +457,19 @@ def forward(
     x = _embed_input(params, cfg, tokens, embeds)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    kvs, auxs = [], []
-    for g in range(_num_groups(params)):
-        x, kv, aux = _apply_group(
-            _group(params["blocks"], g), x, cfg, plans,
+    def group_fn(group_params, x, vision_embeds):
+        return _apply_group(
+            group_params, x, cfg, plans,
             positions=positions, vision_embeds=vision_embeds, collect_kv=collect_kv,
             attn_impl=attn_impl, q_chunk=q_chunk, kv_chunk=kv_chunk,
             causal_skip=causal_skip, kernels=mode,
         )
+
+    if remat:
+        group_fn = G._checkpoint(group_fn)
+    kvs, auxs = [], []
+    for g in range(_num_groups(params)):
+        x, kv, aux = group_fn(_group(params["blocks"], g), x, vision_embeds)
         kvs.append(kv)
         auxs.append(aux)
     x = _norm(cfg, params.get("final_norm"), x)

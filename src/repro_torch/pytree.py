@@ -69,42 +69,77 @@ def _children(tree) -> tuple[Any, Any, tuple]:
     return None
 
 
+# The walkers below are module-level functions that take their
+# accumulators as arguments: a nested function that calls itself sits in
+# a reference cycle (function -> closure cell -> function), and any list
+# of leaves it closed over would stay alive, tensors and all, until the
+# cyclic garbage collector ran.
+
+
+def _walk(node, leaves: list) -> TreeDef:
+    parts = _children(node)
+    if parts is None:
+        leaves.append(node)
+        return _LEAF
+    kind, aux, kids = parts
+    return TreeDef(kind, aux, tuple(_walk(k, leaves) for k in kids))
+
+
 def flatten(tree: PyTree) -> tuple[list, TreeDef]:
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node) -> TreeDef:
-        parts = _children(node)
-        if parts is None:
-            leaves.append(node)
-            return _LEAF
-        kind, aux, kids = parts
-        return TreeDef(kind, aux, tuple(walk(k) for k in kids))
 
-    return leaves, walk(tree)
+def _build(td: TreeDef, it):
+    if td.kind is None:
+        return next(it)
+    kids = [_build(c, it) for c in td.children]
+    if td.kind is type(None):
+        return None
+    if td.kind is dict:
+        return dict(zip(td.aux, kids))
+    if td.kind is list:
+        return kids
+    if td.kind is tuple:
+        return tuple(kids)
+    if td.kind in _DATACLASSES:
+        return td.kind(**dict(zip(td.aux, kids)))
+    return td.kind(*kids)  # a named tuple
 
 
 def unflatten(treedef: TreeDef, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind is None:
-            return next(it)
-        kids = [build(c) for c in td.children]
-        if td.kind is type(None):
-            return None
-        if td.kind is dict:
-            return dict(zip(td.aux, kids))
-        if td.kind is list:
-            return kids
-        if td.kind is tuple:
-            return tuple(kids)
-        if td.kind in _DATACLASSES:
-            return td.kind(**dict(zip(td.aux, kids)))
-        return td.kind(*kids)  # a named tuple
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("too many leaves for the tree structure")
+    return out
+
+
+def _walk_paths(node, path: str, out: list) -> None:
+    parts = _children(node)
+    if parts is None:
+        out.append((path, node))
+        return
+    kind, aux, kids = parts
+    if kind is dict:
+        names = [f"[{k!r}]" for k in aux]
+    elif kind in _DATACLASSES:
+        names = [f".{f}" for f in aux]
+    elif isinstance(aux, type) and hasattr(aux, "_fields"):  # a named tuple
+        names = [f".{f}" for f in aux._fields]
+    else:
+        names = [f"[{i}]" for i in range(len(kids))]
+    for name, kid in zip(names, kids):
+        _walk_paths(kid, path + name, out)
+
+
+def flatten_with_paths(tree: PyTree) -> list[tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf, in flattening order; ``path`` is
+    what ``jax.tree_util.keystr`` prints for it (``['params']['w']``,
+    ``[0]``, ``.field``), so a file keyed by paths is keyed alike by
+    both packages."""
+    out: list[tuple[str, Any]] = []
+    _walk_paths(tree, "", out)
     return out
 
 

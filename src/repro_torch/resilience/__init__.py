@@ -6,8 +6,8 @@ time out, or be retried, and the *flow* (not a single force point) is
 where failure must propagate.  This package is the generic runbook that
 :mod:`repro_torch.serve.supervisor` (``ServeSupervisor``: round
 snapshot/restore, watchdog deadline, numerics scan, graceful SIGTERM
-drain) consumes; the training loop that the reference also builds on it
-is not ported yet (ROADMAP A10).
+drain) and :mod:`repro_torch.train.fault` (``ResilientLoop``: checkpoint
+restart and replay, heartbeats, stragglers) consume.
 
 The modules hold no tensor code and are copies of the reference's:
 

@@ -4,7 +4,7 @@ Port of ``repro.resilience.straggler`` (framework-free; a copy).
 
 On a real pod the action on a detected straggler is to cordon the slow
 host and re-shard (the reference's ``repro.train.elastic``, not ported
-yet: ROADMAP A10); the detector and the
+yet: ROADMAP A12); the detector and the
 policy hook are the reusable halves, so they live here and the action
 stays a callback.
 """

@@ -17,7 +17,7 @@ engines are held to the JAX ``Engine``'s tokens on that contract; the
 cross-attention itself is held by ``forward``, ``prefill_step`` and
 ``decode_step`` with ``vision_embeds``.
 """
-from functools import partial
+from functools import cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_torch_thread  # noqa: F401  (one torch thread)
 from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.models import transformer as JT
@@ -40,6 +41,7 @@ from repro_torch.serve.engine import (
     Engine, ServeConfig, StreamEngine, decode_copy_bytes_per_tick,
 )
 from repro_torch.serve.supervisor import ServeSupervisor, chaos_injector
+
 
 ARCH = "llama-3.2-vision-90b"
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -205,6 +207,7 @@ def test_cross_attn_fresh_and_cached_match_jax(variant, impl):
     assert float(np.abs(_np(tout)).max()) > 1e-3  # the gate lets the block through
 
 
+@cache
 def _jax_forward(jcfg):
     return jax.jit(lambda p, t, ve: JT.forward(p, jcfg, tokens=t, vision_embeds=ve,
                                                attn_impl="dense", remat=False),
@@ -302,7 +305,10 @@ def test_cross_attention_without_vision_input_raises():
 # ---------------------------------------------------------------------------
 
 
+@cache
 def jax_steps(jcfg):
+    """The JAX prefill and decode steps, jitted once per config (the
+    tests of a config share the compiled shapes)."""
     chunk = jax.jit(lambda p, c, t, ve, pos, at, impl: JT.prefill_step(
         p, c, jcfg, tokens=t, pos=pos, vision_embeds=ve, attn_impl=impl, logits_at=at),
         static_argnums=(4, 5, 6), compiler_options=EXACT_BF16)
@@ -423,16 +429,23 @@ def _serve(eng, prompts, budgets):
     return [r.out_tokens for r in reqs]
 
 
+@cache
+def _engine_steps(jcfg):
+    """The JAX Engine's prefill and decode, jitted once per config: both
+    workloads' oracles share the compiled shapes."""
+    return (jax.jit(partial(JT.prefill_step, cfg=jcfg, attn_impl="dense"),
+                    compiler_options=EXACT_BF16),
+            jax.jit(partial(JT.decode_step, cfg=jcfg, attn_impl="dense"),
+                    compiler_options=EXACT_BF16))
+
+
 def jax_tokens(dtype, workload):
     key = (dtype, workload)
     if key not in _JAX:
         jcfg, _, jp, _ = models(dtype)
         serve, _, prompts, budgets = WORKLOADS[workload]
         eng = JaxEngine(jp, jcfg, JaxServeConfig(**serve))
-        eng._prefill = jax.jit(partial(JT.prefill_step, cfg=jcfg, attn_impl="dense"),
-                               compiler_options=EXACT_BF16)
-        eng._decode = jax.jit(partial(JT.decode_step, cfg=jcfg, attn_impl="dense"),
-                              compiler_options=EXACT_BF16)
+        eng._prefill, eng._decode = _engine_steps(jcfg)
         _JAX[key] = _serve(eng, prompts, budgets)
     return _JAX[key]
 

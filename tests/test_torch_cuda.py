@@ -1381,3 +1381,90 @@ def test_zoo_prefill_and_decode_on_the_card_match_the_cpu(arch):
     for name, blk in caches["cpu"].items():
         for key, t in blk.items():
             torch.testing.assert_close(caches["cuda"][name][key].cpu(), t, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training: the plain ops on the card, the planned backward on stage streams
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """Two fp32 AdamW steps (2 microbatches, remat) of a smoke config on
+    the card against the same steps on the CPU: losses, grad norms and
+    every leaf of the params and moments within 1e-4 relative (to the
+    leaf's largest value); no kernel launches."""
+    from repro_torch import pytree as P
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.train import AdamWConfig, TrainConfig, init_opt_state, make_train_step
+
+    cfg = smoke_config(get_config("olmo-1b")).with_overrides(dtype=torch.float32)
+    params = init_params(T.model_layout(cfg), seed=0, device="cpu")
+    ocfg = AdamWConfig(learning_rate=1e-3, eps=1e-3, warmup_steps=1, total_steps=4)
+    step_fn = make_train_step(cfg, TrainConfig(num_microbatches=2, kernels="auto"), ocfg)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32))
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = P.tree_map(lambda t: t.to(device), params)
+        o = init_opt_state(p, ocfg)
+        metrics = []
+        for b in batches:
+            p, o, m = step_fn(p, o, {k: v.to(device) for k, v in b.items()})
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        out[device] = (p, o, metrics)
+    assert K.LAUNCHES == {op: 0 for op in K.OPS}
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4)
+    for got, want in zip(P.leaves(out["cuda"][:2]), P.leaves(out["cpu"][:2])):
+        got, want = got.cpu().float(), want.float()
+        assert (got - want).abs().max() <= 1e-4 * max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("schedule,v", [("gpipe", 1), ("one_f_one_b", 1), ("interleaved", 2)])
+def test_planned_backward_equals_autodiff_on_stage_streams(schedule, v):
+    """A chain of 8 cells with slowed cells (``torch.cuda._sleep``) on 4
+    stage streams of the card: outputs and gradients of Lazy,
+    Future/autodiff and Future/planned bitwise equal."""
+    from repro_torch.core import FutureEvaluator, LazyEvaluator, Stream
+
+    g = _gen(5)
+    w = torch.randn(8, 64, 64, generator=g, device="cuda") * 0.2
+    items = torch.randn(6, 32, 64, generator=g, device="cuda")
+
+    def cell(ww, x):
+        torch.cuda._sleep(20000)
+        return ww, torch.tanh(x @ ww) + x
+
+    def run(ev):
+        wl = w.clone().requires_grad_(True)
+        xi = items.clone().requires_grad_(True)
+        out = Stream.source(xi).through(cell, wl, mutable_state=False, remat=True).collect(ev)
+        grads = torch.autograd.grad(out.items.square().mean(), [wl, xi])
+        torch.cuda.synchronize()
+        return [out.items.detach()] + list(grads)
+
+    want = run(LazyEvaluator())
+    for backward in ("autodiff", "planned"):
+        got = run(FutureEvaluator(4, schedule=schedule, interleave=v, backward=backward))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), backward
+
+
+def test_kernel_guard_stops_a_cuda_tensor_that_requires_grad():
+    """``get_impl(op, "cuda")`` under autograd with a CUDA input that
+    requires grad raises before launching; under ``no_grad`` it runs."""
+    q = torch.randn(1, 8, 2, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 8, 2, 64, device="cuda")
+    attention = K.get_impl("attention", "cuda")
+    with pytest.raises(RuntimeError, match="'attention' CUDA kernel.*no backward"):
+        attention(q, k, k, causal=True)
+    assert K.LAUNCHES["attention"] == 0
+    with torch.no_grad():
+        attention(q, k, k, causal=True)
+    assert K.LAUNCHES["attention"] == 1
+    x = torch.randn(4, 256, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="'rmsnorm' CUDA kernel"):
+        K.get_impl("rmsnorm", "cuda")(x, torch.ones(256, device="cuda"), 1e-5)

@@ -303,8 +303,14 @@ def test_zip_off_a_stage_boundary_raises():
 def test_constructor_errors():
     with pytest.raises(ValueError, match="requires interleave=1"):
         FutureEvaluator(4, schedule="gpipe", interleave=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        FutureEvaluator(4, backward="planned")
+    planned = FutureEvaluator(4, backward="planned")  # ported: constructs
+    assert planned.backward == "planned"
+    # and refuses what the reference's planned backward refuses
+    with pytest.raises(ValueError, match="requires immutable cell state"):
+        evaluate(StreamProgram(_cell, t(W8), 8), t(A7), planned)
+    with pytest.raises(ValueError, match="does not support feedback chains"):
+        Stream.feedback(t(A7[:2]), 6, _fbemit).through(
+            _cell, t(W8), mutable_state=False).collect(planned)
     with pytest.raises(ValueError, match="unknown backward mode"):
         FutureEvaluator(4, backward="other")
     with pytest.raises(ValueError, match="num_stages"):

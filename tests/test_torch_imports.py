@@ -34,6 +34,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.decode_attention.ops" in mods
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops", "repro_torch.kernels.ssd.ref",
             "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref"} <= set(mods)
+    assert {"repro_torch.train.train_step", "repro_torch.train.optimizer",
+            "repro_torch.train.checkpoint", "repro_torch.train.fault",
+            "repro_torch.train.compression", "repro_torch.data.pipeline",
+            "repro_torch.core.pipeline", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -52,7 +56,9 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_emit.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_emit.py",
+                                         ROOT / "scripts" / "profile_train.py",
+                                         ROOT / "scripts" / "time_engine.py"]
     assert len(files) > 15 and PKG / "models" / "ssm.py" in files
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())

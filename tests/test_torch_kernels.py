@@ -262,8 +262,9 @@ def test_get_impl_without_cuda(monkeypatch):
 
 def test_get_impl_with_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert K.get_impl("decode_attention", "cuda") is da_ops.fused_decode_attention
-    assert K.get_impl("emit_norm_logits", "auto") is emit_ops.emit_norm_logits
+    # the wrappers, behind the training guard (kernels.no_backward)
+    assert K.get_impl("decode_attention", "cuda").__wrapped__ is da_ops.fused_decode_attention
+    assert K.get_impl("emit_norm_logits", "auto").__wrapped__ is emit_ops.emit_norm_logits
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_torch_thread  # noqa: F401  (one torch thread)
 from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.models import transformer as JT
@@ -64,6 +65,21 @@ EVALUATORS = {
 
 _MODELS: dict = {}
 _JAX: dict = {}
+_JIT: dict = {}
+
+
+def jax_steps(jcfg):
+    """The JAX ``prefill_step`` and ``decode_step``, jitted once per
+    config: every workload and oracle run on it shares the compiled
+    shapes."""
+    if jcfg not in _JIT:
+        _JIT[jcfg] = (
+            jax.jit(partial(JT.prefill_step, cfg=jcfg, attn_impl="dense"),
+                    compiler_options=EXACT_BF16),
+            jax.jit(partial(JT.decode_step, cfg=jcfg, attn_impl="dense"),
+                    compiler_options=EXACT_BF16),
+        )
+    return _JIT[jcfg]
 
 
 def models(arch, dtype):
@@ -117,10 +133,7 @@ def _run_jax(arch, jcfg, jp, workload):
     serve, _, prompts, budgets = WORKLOADS[workload]
     eng = (_UnpaddedTailJaxEngine if arch == JAMBA else JaxEngine)(
         jp, jcfg, JaxServeConfig(**serve))
-    eng._prefill = jax.jit(partial(JT.prefill_step, cfg=jcfg, attn_impl="dense"),
-                           compiler_options=EXACT_BF16)
-    decode = jax.jit(partial(JT.decode_step, cfg=jcfg, attn_impl="dense"),
-                     compiler_options=EXACT_BF16)
+    eng._prefill, decode = jax_steps(jcfg)
     logits = {}
     sample_host = eng._sample_host
 

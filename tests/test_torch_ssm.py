@@ -811,6 +811,7 @@ def test_registry_has_the_ssd_and_rmsnorm_ops(monkeypatch):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             K.get_impl(op, "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert K.get_impl("ssd", "cuda") is ssd_ops.ssd_chunked_cuda
-    assert K.get_impl("rmsnorm", "auto") is rms_ops.rmsnorm
+    # the wrappers, behind the training guard (kernels.no_backward)
+    assert K.get_impl("ssd", "cuda").__wrapped__ is ssd_ops.ssd_chunked_cuda
+    assert K.get_impl("rmsnorm", "auto").__wrapped__ is rms_ops.rmsnorm
 
