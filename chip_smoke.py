@@ -125,6 +125,22 @@
    stages' overlap.  The launch counters read 0 throughout: training
    runs the plain ops.
 
+11. Roofline and trace (``repro_torch.roofline``), run where each model is
+   already built: a, the card's attainable rates (a 4 GiB device copy,
+   a bf16 8192^3 matmul) beside the datasheet peaks the bounds use (a
+   reading above 105 % of its peak fails); b, after the kernel phase's
+   OLMo-1B runs, 16 steady decode steps of the ``Engine`` under
+   ``torch.profiler``: the idle share, the 10 longest idle gaps with the
+   host op that held each, the top 10 kernels, launches a step from the
+   trace equal to the launch counters (decode attention 16, the tied
+   emit 1), no slab-sized cache copy, and device busy a step at least
+   0.95 of ``predicted_tick_seconds``; c, one round of StreamEngine c,
+   whose emit must run on the final stage's stream only; d, in step 7,
+   4 eager decode steps of Moonlight's ``Engine`` (decode attention 48,
+   the untied emit 1, RMSNorm 96 a step); e, in step 10, one step of the
+   train loop (no kernel launched).  The kernel phase's bounds come from
+   ``roofline/analytic.py``.
+
 Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
 11), twice: the two runs must give the same tokens (the sampling key is
 a function of seed, request and token index), with the launch counts of
@@ -152,11 +168,6 @@ sys.path.insert(0, str(ROOT / "src"))
 # deterministic workspace, set before CUDA is first touched.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# dense bf16 tensor cores; fp32 outside them; fp32-accurate products on
-# the tensor cores (495 TFLOP/s of TF32 over the three products of a
-# 3xTF32 split)
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 REPS = 21
 
 
@@ -218,14 +229,6 @@ def eager_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    """The least time of the work, in ms, and what bounds it; ``dtype``
-    (a torch dtype or a key of ``PEAK_OPS``) names the peak rate."""
-    name = str(dtype).removeprefix("torch.")
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def bf16_ulp(x):
     import torch
 
@@ -278,6 +281,7 @@ def run_decode_attention(gen, results):
     from repro_torch import kernels as K
     from repro_torch.kernels.decode_attention.ops import decode_split, fused_decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.roofline.analytic import bound_ms, decode_attention_work
 
     b, s, copies = 8, 1024, 4
     sms = K.sm_count(torch.device("cuda"))
@@ -315,8 +319,8 @@ def run_decode_attention(gen, results):
                     attn_mask=mask, **sdpa_kw))
             lib_ms = device_ms(library)
             rows = n.clamp(max=s).sum().item()
-            nbytes = args[0].element_size() * (2 * b * h * dh + 2 * kv * dh * rows) + 8 * b
-            bms, by = bound_ms(nbytes, 4 * h * dh * rows, dtype)
+            bms, by = bound_ms(*decode_attention_work(b, h, kv, dh, rows, args[0].element_size()),
+                               dtype)
             split_rows, splits = decode_split(b, kv, s, sms)
             print(f"decode_attention {label} B={b} S={s} H={h} KV={kv} dh={dh} {dtype} "
                   f"(valid rows {rows}): max_abs_err={err.max().item():.3e} "
@@ -374,6 +378,8 @@ def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dic
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.roofline.analytic import bound_ms, emit_work
+
     x = (torch.randn((b, 1, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
     shape, std = ((v, d), 0.02) if tied else ((d, v), d**-0.5)
     w = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
@@ -398,8 +404,7 @@ def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dic
         return xn @ (h.T if tied else h)
 
     lib_ms = device_ms([lambda h=h: library(h) for h in heads])
-    nbytes = x.element_size() * (b * d + v * d) + 4 * b * v + (4 * d if scale is not None else 0)
-    bms, by = bound_ms(nbytes, 2 * b * d * v, dtype)
+    bms, by = bound_ms(*emit_work(b, d, v, x.element_size(), scaled=scale is not None), dtype)
     print(f"emit_norm_logits {norm} tied={tied} B={b} d={d} V={v} {dtype}: "
           f"max_abs_err={err.max().item():.3e} max_rel_err={rel:.3e} "
           f"worst/allowed={worst:.3f} {'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms "
@@ -440,23 +445,6 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 L2_BYTES = 50e6
 
 
-def flash_work(b, sq, sk, h, kv, dh, causal, q_offset, lens, elem):
-    """(bytes, operations) this call needs: q and the output once, the K
-    and V rows some query can see once per KV head; 4 * dh operations for
-    each (query, head, valid key) pair."""
-    pairs = rows = 0
-    for n in lens:
-        n = min(max(n, 0), sk)
-        if causal:
-            rows += min(n, max(q_offset + sq, 0))
-            pairs += sum(min(n, max(q_offset + i + 1, 0)) for i in range(sq))
-        else:
-            rows += n
-            pairs += sq * n
-    nbytes = elem * (2 * b * sq * h * dh + 2 * rows * kv * dh) + 4 * b
-    return nbytes, 4 * h * dh * pairs
-
-
 def run_flash(gen, results):
     import torch
     import torch.nn.functional as F
@@ -464,6 +452,7 @@ def run_flash(gen, results):
     from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_split, key_span
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.roofline.analytic import bound_ms, flash_work
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -557,36 +546,12 @@ def run_flash(gen, results):
 SSD_TOL = {"bfloat16": 1.6e-2, "float32": 1e-4}
 
 
-def ssd_work(bc, h, q, p, g, n, elem):
-    """(bytes, C.B^T operations, per-head operations) of one intra-chunk
-    call: x, dt, B, C read once, y, the fp32 state and cum written once;
-    2 operations per multiply-add of the lower triangle of C.B^T (once per
-    group: it does not depend on the head), and of W.x and of the state
-    product (per head)."""
-    tri = q * (q + 1) // 2
-    nbytes = elem * (2 * bc * h * q * p + 2 * bc * g * q * n) + 4 * (
-        2 * bc * h * q + 2 * h + bc * h * n * p)
-    return nbytes, bc * 2 * g * tri * n, bc * h * (2 * tri * p + 2 * q * n * p)
-
-
-def ssd_bound_ms(nbytes, cb_ops, head_ops, dtype) -> tuple[float, str]:
-    """The least time of the SSD's work on the tensor cores.  The products
-    must be fp32-accurate.  bf16 x, B and C are exact as one bf16 term, so
-    C.B^T takes one bf16 product and W.x and the state product, whose fp32
-    weights need two bf16 terms (W = hi + lo), take two: the bf16 rate.
-    fp32 inputs take every product at the 3xTF32 rate."""
-    import torch
-
-    if dtype == torch.bfloat16:
-        return bound_ms(nbytes, cb_ops + 2 * head_ops, torch.bfloat16)
-    return bound_ms(nbytes, cb_ops + head_ops, "3xtf32")
-
-
 def run_ssd(gen, results):
     import torch
 
     from repro_torch.kernels.ssd.ops import ssd_chunked_cuda, ssd_intra_chunk
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref, ssd_ref
+    from repro_torch.roofline.analytic import bound_ms, ssd_bound_ms, ssd_work
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -689,6 +654,7 @@ def run_rmsnorm(gen, results):
 
     from repro_torch.kernels.rmsnorm import ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.roofline.analytic import bound_ms, rmsnorm_work
 
     eps = 1e-5
     for rows, d in RMS_SHAPES:
@@ -696,7 +662,7 @@ def run_rmsnorm(gen, results):
         for dtype in (torch.bfloat16, torch.float32):
             for gated in (False, True):
                 elem = torch.tensor([], dtype=dtype).element_size()
-                nbytes = (3 if gated else 2) * rows * d * elem + 4 * d
+                nbytes, work = rmsnorm_work(rows, d, elem, gated=gated)
                 copies = min(64, max(1, -(-int(1.3 * L2_BYTES) // nbytes)))
                 ys = [(torch.randn((rows, d), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
                       for _ in range(copies)]
@@ -723,7 +689,7 @@ def run_rmsnorm(gen, results):
                 lib_ms = device_ms([lambda y=y, z=z: F.rms_norm(gate_ops(y, z), (d,), w, eps)
                                     for y, z in cases])
                 host_ms = eager_ms(lambda: ops.rmsnorm(ys[0], scale, eps, gate=zs[0]))
-                bms, by = bound_ms(nbytes, (9 if gated else 4) * rows * d, dtype)
+                bms, by = bound_ms(nbytes, work, dtype)
                 lib_name = "silu+cast+mul+F.rms_norm" if gated else "F.rms_norm"
                 line = (f"rmsnorm rows={rows} d={d} {dtype} gated={gated}: max_abs_err="
                         f"{err.max().item():.3e} {'ok' if ok else 'FAILED'}; device kernel "
@@ -1812,14 +1778,7 @@ def print_overlap(runs, label, smi) -> None:
     were.  A unit's span runs from its start event to its end event on
     its stage's stream: on a card that waits on the host it is the host's
     time to issue the unit."""
-
-    def union(spans):
-        total, end = 0.0, float("-inf")
-        for a, b in sorted(spans):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total
+    from repro_torch.roofline.trace import busy_us as union
 
     busy = any_busy = span = 0.0
     units = stages = 0
@@ -1990,6 +1949,7 @@ def run_moe_apply(cfg, params, smi) -> None:
     from repro_torch import pytree as P
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
+    from repro_torch.roofline.analytic import bound_ms
 
     p = T._group(params["blocks"], 0)["block0"]["moe"]
     wbytes = sum(t.numel() * t.element_size() for t in P.leaves(p))
@@ -2026,6 +1986,7 @@ def run_step_times(cfg, params, smi) -> None:
     import torch
 
     from repro_torch.models import transformer as T
+    from repro_torch.roofline.analysis import HBM_BW
 
     rng = torch.Generator(device="cuda")
     rng.manual_seed(5)
@@ -2049,7 +2010,7 @@ def run_step_times(cfg, params, smi) -> None:
             fn()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t) / 5 * 1e3
-        bms = wbytes / HBM_BYTES_PER_S * 1e3
+        bms = wbytes / HBM_BW * 1e3
         print(f"{cfg.name} {what} ({smi}): device {dev:.2f} ms (one CUDA graph replayed), "
               f"eager {host:.2f} ms (host clock, synchronised); the {wbytes} bytes of weights "
               f"read once {bms:.2f} ms: device/eager {dev / host:.3f}", flush=True)
@@ -2122,6 +2083,11 @@ def run_moonlight(smi) -> dict:
             NO_LAUNCHES, decode_attention=steps * layers, emit_norm_logits=steps,
             attention=chunks * layers, rmsnorm=2 * (steps + chunks) * layers))
     add(launches)
+    # 11d. Roofline and trace: 4 eager decode steps of the Engine, profiled
+    run_trace_engine(cfg, params, "11d moonlight engine decode", smi, 4, {
+        "decode_attention_kernel": (layers, "decode_attention"),
+        "emit_untied_tma_kernel": (1, "emit_norm_logits"),
+        "rmsnorm_*": (2 * layers, "rmsnorm"), "flash_*": (0, "attention")})
     run_step_times(cfg, params, smi)
     run_decode_end_to_end(cfg, params)
     run_prefill_end_to_end(cfg, params)
@@ -2470,8 +2436,6 @@ def run_musicgen(smi) -> dict:
 
 OLMO_PARAMS = 1_176_764_416
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 2, 20
-# the dense bf16 tensor-core rate the derived share is read against
-DENSE_BF16 = PEAK_OPS["bfloat16"]
 
 
 def check_no_launches(label) -> None:
@@ -2543,6 +2507,7 @@ def run_trainer(cfg, params, opt, step_fn, batch_fn, smi):
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.roofline.analysis import PEAK_FLOPS_BF16
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2576,7 +2541,7 @@ def run_trainer(cfg, params, opt, step_fn, batch_fn, smi):
           f"(host clock, synchronised; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); "
           f"{tokens / p50:.0f} tokens/s; peak memory {peak / 1e9:.2f} GB "
           f"({(peak - base) / 1e9:.2f} GB above the weights and state); derived dense-bf16 "
-          f"share 6*N*T/(p50 * 989e12) = {6 * OLMO_PARAMS * tokens / (p50 * DENSE_BF16):.4f} "
+          f"share 6*N*T/(p50 * 989e12) = {6 * OLMO_PARAMS * tokens / (p50 * PEAK_FLOPS_BF16):.4f} "
           f"(attention left out)", flush=True)
     return params, opt
 
@@ -2776,6 +2741,8 @@ def run_training(smi) -> None:
     # kept for d)
     p_end, o_end = run_trainer(cfg, params, init_opt_state(params, ocfg), step_fn, batch_fn,
                                smi)
+    # 11e. Roofline and trace: one more step of the loop, profiled
+    p_end, o_end = run_trace_train_step(step_fn, p_end, o_end, batch_fn(TRAIN_STEPS), smi)
     run_fault_replay(cfg, p_end, o_end, step_fn, batch_fn, smi)
     del p_end, o_end
     free_card()
@@ -2784,6 +2751,259 @@ def run_training(smi) -> None:
     free_card()
     print(f"training phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
           f"launched 0 times", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 11. Roofline and trace: the card's attainable rates beside its
+# datasheet peaks, and torch.profiler readings (roofline/trace.py) of a
+# served step, a StreamEngine round and a train step
+# ---------------------------------------------------------------------------
+
+RATE_COPY_BYTES = 4 << 30  # one 4 GiB buffer copied: 2 x 4 GiB moved
+RATE_MATMUL_N = 8192       # a bf16 8192^3 torch.matmul: the yardstick of the tensor cores
+OVER_PEAK = 1.05           # a measured rate this far above its datasheet peak fails
+PREDICTED_SHARE = 0.95     # device busy a step below this share of the prediction fails
+STEP11_SECONDS: list[float] = []  # each step-11 reading's wall time, summed at the end
+
+
+def run_rates(smi) -> None:
+    """11a. The rates the card attains: a device-to-device copy of 4 GiB
+    (2 x 4 GiB moved) and a bf16 8192^3 ``torch.matmul`` (a yardstick, as
+    the library columns are), each beside its datasheet peak.  A bound
+    keeps the peak; a reading above 105 % of it fails."""
+    import torch
+
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS_BF16
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 1e3 / reps
+
+    started = time.perf_counter()
+    src = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_rate = 2 * RATE_COPY_BYTES / timed(lambda: dst.copy_(src), 5)
+    del src, dst
+    n = RATE_MATMUL_N
+    a, b = (torch.randn((n, n), device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    mm_rate = 2 * n**3 / timed(lambda: torch.matmul(a, b), 10)
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"11a attainable rates ({smi}): device-to-device copy of 4 GiB {copy_rate / 1e12:.3f} "
+          f"TB/s against the datasheet's {HBM_BW / 1e12:.2f} ({copy_rate / HBM_BW:.3f} of it); "
+          f"bf16 {n}^3 matmul {mm_rate / 1e12:.1f} TFLOP/s against {PEAK_FLOPS_BF16 / 1e12:.0f} "
+          f"({mm_rate / PEAK_FLOPS_BF16:.3f}); bounds keep the datasheet peaks", flush=True)
+    if copy_rate > OVER_PEAK * HBM_BW or mm_rate > OVER_PEAK * PEAK_FLOPS_BF16:
+        fail("a measured rate beats its datasheet peak by more than 5 %: the timing is wrong")
+    STEP11_SECONDS.append(time.perf_counter() - started)
+
+
+def print_trace(label, records, steps, smi, unprofiled_s) -> dict:
+    """The profiled window's idle share, its 10 longest device gaps with
+    the host op that held each, and the 10 kernels with the most device
+    time; beside them the share derived from the busy time a step and
+    ``unprofiled_s``, the host-clock time of a step without the profiler
+    (which slows the host).  Returns the busy time and the window, in
+    us."""
+    from repro_torch.roofline import trace as TR
+
+    window = TR.span_window(records)
+    busy = TR.device_busy_us(records, window)
+    idle = TR.idle_share(records, window)
+    span = window[1] - window[0]
+    gaps = TR.longest_gaps(records, 10, window)
+    top = TR.kernel_time_by_name(records, 10, window)
+    print(f"{label} trace ({smi}): {steps} profiled steps in {span / 1e3:.3f} ms (host clock, "
+          f"profiler on), device busy {busy / 1e3:.3f} ms ({busy / steps / 1e3:.4f} ms a step): "
+          f"idle share {idle:.4f}; a step without the profiler {unprofiled_s * 1e3:.3f} ms "
+          f"(host clock, synchronised): 1 - busy/step {1 - busy / steps / 1e6 / unprofiled_s:.4f}",
+          flush=True)
+    print(f"  {label} longest gaps: " + "; ".join(
+        f"{g / 1e3:.3f} ms in {op}" for g, _, op in gaps), flush=True)
+    print(f"  {label} top kernels: " + "; ".join(
+        f"{name} {t / 1e3:.3f} ms x{c}" for name, t, c in top), flush=True)
+    return dict(busy_us=busy, window_us=span, idle=idle)
+
+
+def check_trace_launches(label, records, want) -> None:
+    """``want``: {stem pattern: (launches a step, the launch counter's
+    total over the window)}.  The trace must count exactly that many in
+    every profiled step, and as many in all as the counter."""
+    from repro_torch.roofline import trace as TR
+
+    got = {p: TR.launches(records, p) for p in want}
+    for p, (per_step, counted) in want.items():
+        if any(c != per_step for c in got[p]) or sum(got[p]) != counted:
+            fail(f"{label}: the trace counts {got[p]} launches of {p} a step, expected "
+                 f"{per_step} a step and {counted} in all (the launch counters)")
+    print(f"  {label} launches a step from the trace, equal to the launch counters: "
+          + ", ".join(f"{p} {per_step}" for p, (per_step, _) in want.items()), flush=True)
+
+
+def run_trace_engine(cfg, params, label, smi, steps, want) -> None:
+    """11b/11d. The ``Engine`` ("flash", the cfg's kernels) on the 12
+    requests: after the first step (the 8 slots prefilled), up to 8
+    steady decode steps timed on the host clock, then ``steps`` profiled.
+    ``want`` gives {stem pattern: (launches a step, counter key)}; the
+    trace must count them exactly, as the counters do, make no slab-sized
+    cache copy (one layer's K slab of the 8 x 1024 cache), and the device
+    must be busy at least 0.95 of ``predicted_tick_seconds(mode="cuda")``
+    a step at B 8 and the steps' mean valid kv_len."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.roofline import analytic as AN
+    from repro_torch.roofline import trace as TR
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, prefill_chunk=128,
+                       attn_impl="flash")
+    eng = Engine(params, cfg, scfg, device="cuda")
+    rng = np.random.default_rng(0)
+    for n in PROMPT_LENS:
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n))
+    started = time.perf_counter()
+    eng.step()
+    waiting = len(eng.queue)
+    unprofiled = []
+    for _ in range(min(steps, 8)):  # the 8 slots' 31 decode steps hold 1 + 8 + 16
+        t = time.perf_counter()
+        eng.step()
+        unprofiled.append(time.perf_counter() - t)  # ends in the logits' copy to the host
+    kv_len = []
+
+    def step(_):
+        kv_len.append(float(np.mean(eng.lengths + 1)))
+        eng.step()
+
+    K.reset_launches()
+    records = TR.profile_steps(step, steps)
+    counted = dict(K.LAUNCHES)
+    if (len(eng.queue) != waiting or None in eng.active
+            or eng.decode_steps != 1 + len(unprofiled) + steps):
+        fail(f"{label}: a profiled step was not a steady decode step")
+    check_trace_launches(label, records, {p: (n, counted[key]) for p, (n, key) in want.items()})
+    it = AN._itemsize(cfg)
+    slab = scfg.max_batch * scfg.max_len * cfg.num_kv_heads * cfg.head_dim * it
+    copies = TR.slab_copy_ops(records, slab)
+    print(f"  {label} slab-sized copies ({slab} bytes, one layer's K slab): {len(copies)}",
+          flush=True)
+    if copies:
+        fail(f"{label}: the decode steps copied a cache slab: {copies[:5]}")
+    reading = print_trace(label, records, steps, smi, statistics.median(unprofiled))
+    kv = round(float(np.mean(kv_len)))
+    pred = AN.predicted_tick_seconds(cfg, batch=scfg.max_batch, kv_len=kv, mode="cuda")
+    busy = reading["busy_us"] / steps / 1e6
+    print(f"  {label} device busy a step {busy * 1e3:.4f} ms against predicted_tick_seconds "
+          f"(mode cuda, B 8, kv_len {kv}) {pred['total'] * 1e3:.4f} ms (weights "
+          f"{pred['weights'] * 1e3:.4f}, attention {pred['attn'] * 1e3:.4f}, emit "
+          f"{pred['emit'] * 1e3:.4f}): {busy / pred['total']:.3f} of it", flush=True)
+    if busy < PREDICTED_SHARE * pred["total"]:
+        fail(f"{label}: the device is busy {busy * 1e3:.4f} ms a step, below "
+             f"{PREDICTED_SHARE} of the predicted {pred['total'] * 1e3:.4f} ms: a count is wrong")
+    del eng, records
+    STEP11_SECONDS.append(time.perf_counter() - started)
+
+
+def run_trace_stream_round(cfg, params, smi) -> None:
+    """11c. StreamEngine run c (Future on 4 stage streams, gpipe, 8 cells,
+    4 microbatches, "flash", ``kernels="cuda"``): its second round timed,
+    its third profiled, with one marker launch on each stage stream
+    inside a span ``stage d`` after it (the spans name the streams).  The emit kernel must run on the final stage's stream
+    only (the tick plan's ``emit`` column), decode attention on every
+    stage's, each kernel as often as its launch counter says."""
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.core.future import stage_stream
+    from repro_torch.roofline import trace as TR
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+
+    stages = 4
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, prefill_chunk=128,
+                       attn_impl="flash")
+    pcfg = DecodePipelineConfig(num_cells=8, microbatches=4, schedule="gpipe", kernels="cuda")
+    eng = StreamEngine(params, cfg, scfg, pcfg, stages=stages, device="cuda")
+    rng = np.random.default_rng(0)
+    for n in PROMPT_LENS:
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n))
+    started = time.perf_counter()
+    eng.step()
+    t = time.perf_counter()
+    eng.step()  # ends in the emitted items' copy to the host
+    unprofiled = time.perf_counter() - t
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def round_(_):
+        eng.step()
+        for d in range(stages):
+            with torch.cuda.stream(stage_stream(device, d)), record_function(f"stage {d}"):
+                torch.ones(1, device=device)
+
+    K.reset_launches()
+    records = TR.profile_steps(round_, 1, shapes=False)
+    counted = dict(K.LAUNCHES)
+    items = pcfg.round_steps * pcfg.microbatches
+    check_trace_launches("11c stream engine c round", records, {
+        "decode_attention_kernel": (items * cfg.num_layers, counted["decode_attention"]),
+        "emit_*": (items, counted["emit_norm_logits"])})
+    marks = [TR.span_streams(records, f"stage {d}") for d in range(stages)]
+    emit = TR.launch_streams(records, "emit_*")
+    attn = TR.launch_streams(records, "decode_attention_kernel")
+    print(f"  11c stream engine c round: stage streams {marks}; the emit ran on {emit}, "
+          f"decode attention on {attn}", flush=True)
+    if any(len(m) != 1 for m in marks) or len({m[0] for m in marks}) != stages:
+        fail(f"11c: the stage markers ran on {marks}, not one stream a stage")
+    if not TR.only_on_streams(records, "emit_*", marks[-1]):
+        fail(f"11c: the emit ran on streams {emit}, not on the final stage's {marks[-1]} only")
+    if attn != sorted(m[0] for m in marks):
+        fail(f"11c: decode attention ran on {attn}, not on the {stages} stage streams")
+    print_trace("11c stream engine c round", records, 1, smi, unprofiled)
+    del eng, records
+    STEP11_SECONDS.append(time.perf_counter() - started)
+
+
+def run_trace_train_step(step_fn, params, opt, batch, smi):
+    """11e. One step of the train loop timed, the next profiled (no
+    shapes): its idle share and top kernels; none of the five kernels
+    launches.  Returns the new params and optimizer state."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.roofline import trace as TR
+
+    started = time.perf_counter()
+    state = [params, opt]
+    del params, opt
+
+    def step(_):
+        state[0], state[1], _m = step_fn(state[0], state[1], batch)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t
+    K.reset_launches()
+    records = TR.profile_steps(step, 1, shapes=False)
+    check_trace_launches("11e train step", records, {
+        p: (0, K.LAUNCHES[key]) for p, key in (
+            ("decode_attention_kernel", "decode_attention"), ("emit_*", "emit_norm_logits"),
+            ("flash_*", "attention"), ("ssd_kernel", "ssd"), ("rmsnorm_*", "rmsnorm"))})
+    print_trace("11e train step", records, 1, smi, unprofiled)
+    del records
+    STEP11_SECONDS.append(time.perf_counter() - started)
+    return state[0], state[1]
 
 
 def main() -> int:
@@ -2831,6 +3051,9 @@ def main() -> int:
     run_rmsnorm(gen, results)
     torch.cuda.empty_cache()
 
+    # 11a. The card's attainable copy and matmul rates beside its datasheet peaks
+    run_rates(smi)
+
     # 3. Engine phase
     cfg = get_config("olmo-1b")
     params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")).params
@@ -2875,6 +3098,13 @@ def main() -> int:
     for name, op in (("decode_attention", "decode_attention"),
                      ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention")):
         launches[name] += se_launches[op] + sup_launches[op]
+
+    # 11b, 11c. Roofline and trace: 16 steady decode steps of the Engine
+    # and one round of StreamEngine c, profiled
+    run_trace_engine(cfg, params, "11b olmo-1b engine decode", smi, 16, {
+        "decode_attention_kernel": (layers, "decode_attention"),
+        "emit_tied*": (1, "emit_norm_logits"), "flash_*": (0, "attention")})
+    run_trace_stream_round(cfg, params, smi)
     del params
     free_card()
 
@@ -2932,6 +3162,8 @@ def main() -> int:
          "launches": launches[name], **results[name]}
         for name, (src, replaces) in source.items()
     ]
+    print(f"step 11 (roofline and trace) took {sum(STEP11_SECONDS):.1f} s in "
+          f"{len(STEP11_SECONDS)} parts", flush=True)
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

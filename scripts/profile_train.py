@@ -8,9 +8,11 @@ and depth, random weights from seed 0; 8 x 2048 tokens a step in 2
 microbatches, remat, chunked attention, AdamW with fp32 moments), runs
 two warm-up steps, then ``N`` steps (3 by default) under
 ``torch.profiler`` and prints: each step's host-clock time
-(synchronised); the device's busy time over the window from the trace
-(the union of its kernels' spans) and so its idle share; the 25 device
-kernels with the most time; and the peak memory of each part of a step
+(synchronised); the device's busy time over the steps' window and its
+idle share (``repro_torch.roofline.trace``: the union of the kernel,
+memcpy and memset spans), the 10 longest idle gaps with the host op that
+held each; the 25 device
+kernels (by stem) with the most time; and the peak memory of each part of a step
 (the forward and backward of each microbatch, the update).  The last
 line is one JSON object of the numbers.  ``--default-workspace`` drops
 the ``CUBLAS_WORKSPACE_CONFIG`` that ``chip_smoke.py`` sets for its
@@ -98,35 +100,36 @@ def main() -> int:
         print(f"peak above the weights and AdamW state ({base / 1e9:.2f} GB): {name} "
               f"{peak / 1e9:.2f} GB", flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.roofline import trace as TR
 
-    times = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for step in range(args.steps):
-            batch = batch_fn(3 + step)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            params, opt, _ = step_fn(params, opt, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    wall_us = sum(times) * 1e6
+    times, state = [], [params, opt]
+    del params, opt
+    batches = [batch_fn(3 + step) for step in range(args.steps)]
+
+    def step(i):
+        t = time.perf_counter()
+        state[0], state[1], _ = step_fn(state[0], state[1], batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+
+    records = TR.profile_steps(step, args.steps, shapes=False)
+    window = TR.span_window(records)
+    busy = TR.device_busy_us(records, window)
+    wall_us = window[1] - window[0]
+    kernels = sum(1 for r in records if r.kind == "kernel" and window[0] <= r.start < window[1])
     print(f"{args.label} {smi}: step times {[round(t * 1e3, 1) for t in times]} ms; device "
           f"busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms (idle share "
-          f"{1 - busy / wall_us:.3f}); {len(spans)} device kernels, "
-          f"{len(spans) / args.steps:.0f} a step", flush=True)
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    print(table, flush=True)
+          f"{TR.idle_share(records, window):.3f}); {kernels} device kernels, "
+          f"{kernels / args.steps:.0f} a step", flush=True)
+    print("longest gaps: " + "; ".join(f"{g / 1e3:.3f} ms in {op}"
+                                       for g, _, op in TR.longest_gaps(records, 10, window)),
+          flush=True)
+    for name, total, count in TR.kernel_time_by_name(records, 25, window):
+        print(f"  {total / 1e3:10.3f} ms  {total / busy:6.1%}  x{count:<6d} {name}", flush=True)
     print(json.dumps({"label": args.label, "device": smi, "step_ms": [t * 1e3 for t in times],
                       "step_p50_ms": statistics.median(times) * 1e3,
                       "device_busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
-                      "kernels_a_step": len(spans) / args.steps,
+                      "kernels_a_step": kernels / args.steps,
                       "peaks_gb": {k: v / 1e9 for k, v in peaks.items()}}), flush=True)
     return 0
 

@@ -1468,3 +1468,103 @@ def test_kernel_guard_stops_a_cuda_tensor_that_requires_grad():
     x = torch.randn(4, 256, device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="'rmsnorm' CUDA kernel"):
         K.get_impl("rmsnorm", "cuda")(x, torch.ones(256, device="cuda"), 1e-5)
+
+
+def _profiled_decode_steps(steps):
+    """A narrow qwen3 (2 layers, GQA 8/2 x 128, untied) decode step
+    ``steps`` times under torch.profiler (``trace.profile_steps``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.roofline import trace as TR
+
+    cfg = get_config("qwen3-32b").with_overrides(
+        num_layers=2, d_model=512, num_heads=8, num_kv_heads=2, d_ff=1024, vocab_size=1024)
+    params = init_params(T.model_layout(cfg), seed=0, device="cuda")
+    cache = T.init_cache(cfg, 4, 96, device="cuda")
+    rng = np.random.default_rng(0)
+    T.prefill_step(params, cache, cfg, pos=0,
+                   tokens=torch.as_tensor(rng.integers(1, 1024, size=(4, 64)), device="cuda"))
+    tokens = torch.as_tensor(rng.integers(1, 1024, size=4), device="cuda")
+    lengths = torch.tensor([64, 10, 0, 63], dtype=torch.int32, device="cuda")
+    T.decode_step(params, cache, cfg, tokens=tokens, lengths=lengths)  # first launches
+    K.reset_launches()
+    records = TR.profile_steps(
+        lambda _: T.decode_step(params, cache, cfg, tokens=tokens, lengths=lengths), steps)
+    slab = 4 * 96 * cfg.num_kv_heads * cfg.head_dim * 2
+    return records, slab
+
+
+def test_trace_counts_a_decode_steps_launches():
+    """roofline/trace.py on a real trace: exact launches a step, equal to
+    the launch counters; the emit and attention on the one stream; no
+    slab copy; an idle share strictly between 0 and 1."""
+    from repro_torch.roofline import trace as TR
+
+    records, slab = _profiled_decode_steps(3)
+    assert TR.launches(records, "decode_attention_kernel") == [2, 2, 2]
+    assert TR.launches(records, "emit_untied_tma_kernel") == [1, 1, 1]
+    assert TR.launches(records, "rmsnorm_*") == [4, 4, 4]
+    assert TR.launches(records, "flash_*") == [0, 0, 0]
+    assert K.LAUNCHES == {"decode_attention": 6, "emit_norm_logits": 3, "attention": 0,
+                          "ssd": 0, "rmsnorm": 12}
+    stream = TR.launch_streams(records, "decode_attention_kernel")
+    assert len(stream) == 1 and TR.only_on_streams(records, "emit_*", stream)
+    assert TR.slab_copies(records, slab) == 0
+    window = TR.span_window(records)
+    assert 0 < TR.idle_share(records, window) < 1
+    assert TR.device_busy_us(records, window) > 0
+    assert TR.kernel_time_by_name(records, 50, window)
+
+
+def test_trace_raises_without_cuda_activity():
+    """No CUDA activity in the trace is no reading: a profile of card work
+    with the CPU activity only, and one of host work with both."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.roofline import trace as TR
+
+    x = torch.randn(256, 256, device="cuda")
+    for activities, fn in (([ProfilerActivity.CPU], lambda: x @ x),
+                           ([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                            lambda: torch.randn(64, 64) @ torch.randn(64, 64))):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            with record_function(TR.STEP_SPAN):
+                fn()
+                torch.cuda.synchronize()
+        records = TR.records_from_profile(prof)
+        assert records
+        with pytest.raises(TR.NoDeviceActivity):
+            TR.idle_share(records, TR.span_window(records))
+        with pytest.raises(TR.NoDeviceActivity):
+            TR.launches(records, "*")
+
+
+def test_torch_quickstart_runs_on_the_card(capsys):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main([])
+    printed = capsys.readouterr().out
+    assert "lazy == future: True" in printed and "zip: lazy == future: True" in printed
+    np.testing.assert_array_equal(out["lazy"], out["future"])
+    assert len(out["primes"]) == 46 and out["chunks"] > 0
+    assert all(len(t) == 6 for t in out["served"].values())
+
+
+def test_torch_serve_lm_runs_on_the_card(capsys):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / "torch_serve_lm.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_lm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    done = mod.main([])
+    assert len(done) == 12 and all(len(r.out_tokens) == 8 for r in done)
+    assert "device=cuda" in capsys.readouterr().out

@@ -58,8 +58,13 @@ def test_every_module_imports_without_jax_or_repro():
 def test_source_scan_finds_no_jax_or_repro_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_emit.py",
                                          ROOT / "scripts" / "profile_train.py",
-                                         ROOT / "scripts" / "time_engine.py"]
+                                         ROOT / "scripts" / "time_engine.py",
+                                         *sorted((ROOT / "examples").glob("torch_*.py"))]
     assert len(files) > 15 and PKG / "models" / "ssm.py" in files
+    assert PKG / "roofline" / "trace.py" in files
+    assert {f.name for f in files} >= {"torch_quickstart.py", "torch_serve_lm.py",
+                                       "torch_train_lm.py",
+                                       "torch_polynomial_multiplication.py"}
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -217,6 +222,27 @@ def test_supervisor_resilience_chunking_and_cli_are_walked():
         ("repro_torch.models.params", ("param_count",)),
         ("repro_torch.launch", ()),
         ("repro_torch.launch.serve", ("main",)),
+    ):
+        assert mod in mods, mod
+        assert all(hasattr(importlib.import_module(mod), n) for n in names), mod
+
+
+def test_roofline_modules_are_walked():
+    """The roofline library (analytic, analysis, trace) is among the
+    modules the import test walks: none imports jax or repro."""
+    import importlib
+
+    mods = set(_modules())
+    for mod, names in (
+        ("repro_torch.roofline.analytic", ("forward_flops", "step_flops", "bound_ms",
+                                           "decode_kernel_rooflines", "predicted_tick_seconds",
+                                           "decode_attention_work", "emit_work", "flash_work",
+                                           "ssd_work", "ssd_bound_ms", "rmsnorm_work")),
+        ("repro_torch.roofline.analysis", ("RooflineTerms", "model_flops", "active_param_count",
+                                           "PEAK_FLOPS_BF16", "HBM_BW")),
+        ("repro_torch.roofline.trace", ("records_from_profile", "busy_us", "idle_share",
+                                        "longest_gaps", "kernel_time_by_name", "launches",
+                                        "launch_streams", "slab_copies", "collective_bytes")),
     ):
         assert mod in mods, mod
         assert all(hasattr(importlib.import_module(mod), n) for n in names), mod
