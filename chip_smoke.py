@@ -141,6 +141,19 @@
    train loop (no kernel launched).  The kernel phase's bounds come from
    ``roofline/analytic.py``.
 
+12. The mesh layer on a one-rank NCCL process group over ``cuda:0`` and a
+   (data 1, model 1) ``DeviceMesh`` (NCCL refuses two ranks on one GPU,
+   so no collective across ranks is checked here; four gloo ranks check
+   them on the CPU): a, the collective futures and helpers on cuda
+   tensors, each bitwise its size-one result, and a forced future
+   ordering the stream with no host sync; b, step 10c's last checkpoint
+   of OLMo-1B restored into a template sharded by ``TRAIN_RULES`` on the
+   mesh of ``choose_elastic_plan(1)``, then 2 sharded steps under the
+   mesh against 2 unsharded ones from the same state, losses and every
+   leaf bitwise equal, with step p50 and peak memory; the plans for 512,
+   256 and 128 devices; c, the dry run of every cell on both production
+   mesh shapes (analytic counts, not card readings).  No kernel launches.
+
 Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
 11), twice: the two runs must give the same tokens (the sampling key is
 a function of seed, request and token index), with the launch counts of
@@ -2436,6 +2449,8 @@ def run_musicgen(smi) -> dict:
 
 OLMO_PARAMS = 1_176_764_416
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 2, 20
+# step 10c's checkpoints, which step 12b restores
+TRAIN_CKPT = ROOT / "build" / "train_ckpt_smoke"
 
 
 def check_no_launches(label) -> None:
@@ -2550,7 +2565,8 @@ def run_fault_replay(cfg, params, opt, step_fn, batch_fn, smi) -> None:
     """c. ``ResilientLoop`` over 10 steps, a checkpoint every 4 and a fault
     injected at step 6, against a fault-free 10-step run from the same
     start: final parameters and optimizer state bitwise equal, under
-    ``torch.use_deterministic_algorithms(True)``."""
+    ``torch.use_deterministic_algorithms(True)``.  The checkpoints stay
+    in ``TRAIN_CKPT`` for step 12."""
     import shutil
 
     import torch
@@ -2570,7 +2586,7 @@ def run_fault_replay(cfg, params, opt, step_fn, batch_fn, smi) -> None:
             p_ref, o_ref, _ = step_fn(p_ref, o_ref, batch_fn(step))
         torch.cuda.synchronize()
         clean_s = time.perf_counter() - t
-        directory = ROOT / "build" / "train_ckpt_smoke"
+        directory = TRAIN_CKPT
         shutil.rmtree(directory, ignore_errors=True)
         ckpt = Checkpointer(str(directory), keep=1)
         saves = []
@@ -2609,7 +2625,7 @@ def run_fault_replay(cfg, params, opt, step_fn, batch_fn, smi) -> None:
               f"against {clean_s:.1f} s fault-free; final params and optimizer state bitwise "
               f"equal to the fault-free run's ({len(pairs)} leaves), deterministic algorithms on",
               flush=True)
-        shutil.rmtree(directory, ignore_errors=True)
+        # the directory stays: step 12 restores its last checkpoint, then removes it
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -2754,6 +2770,253 @@ def run_training(smi) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 12. The mesh layer on a one-rank NCCL process group
+# ---------------------------------------------------------------------------
+
+ONE_RANK = ("one rank: NCCL refuses two ranks on one GPU, so this card checks each collective "
+            "over a group of one rank only; collectives across ranks, the shards rank by rank "
+            "and the sharded step on a 2x2 mesh are checked on 4 gloo ranks on the CPU "
+            "(tests/test_torch_mesh.py)")
+
+
+def run_mesh_collectives(mesh, smi) -> None:
+    """12a. The collective futures and the collective helpers over each
+    axis of the one-rank (data 1, model 1) mesh, on cuda tensors of a
+    decoder's activation rows (8 x 2048) in fp32 and bf16: each equal,
+    bitwise, to its size-one result (the input itself; the ring's one
+    hop computes on it; the compressed mean is the bf16 cast of the
+    error-corrected input, over 1).  A forced future orders the caller's
+    stream after the collective with no host sync: forced behind 50 ms of
+    ``torch.cuda._sleep`` on the current stream, it returns to the host
+    before the card has finished."""
+    import torch
+
+    from repro_torch.core.future import all_gather_future, psum_scatter_future
+    from repro_torch.parallel import collectives as C
+    from repro_torch.train.compression import compress_decompress
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((8, 2048), generator=gen, device="cuda").to(dtype)
+        for axis in ("data", "model"):
+            got = {
+                "all_gather_future": (all_gather_future(x, axis, mesh=mesh).force(), x),
+                "all_gather_future(tiled=False)": (
+                    all_gather_future(x, axis, tiled=False, mesh=mesh).force(), x[None]),
+                "psum_scatter_future": (psum_scatter_future(x, axis, mesh=mesh).force(), x),
+                "ring_all_gather_overlapped": (torch.stack(C.ring_all_gather_overlapped(
+                    x, axis, lambda s, slot: s * (slot + 1), mesh=mesh)), x[None]),
+                "reduce_scatter_then_all_gather": (
+                    C.reduce_scatter_then_all_gather(x, axis, mesh=mesh).force(), x),
+            }
+            err = 1e-3 * torch.randn((8, 2048), generator=gen, device="cuda")
+            red, new_err = C.pod_allreduce_compressed({"g": x.float()}, axis, {"g": err},
+                                                      mesh=mesh)
+            q, want_err = compress_decompress({"g": x.float()}, {"g": err})
+            got["pod_allreduce_compressed"] = (
+                red["g"], (q["g"].to(torch.bfloat16) / 1).to(torch.float32))
+            got["pod_allreduce_compressed (error)"] = (new_err["g"], want_err["g"])
+            for name, (a, b) in got.items():
+                if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"12a {name} over {axis} ({dtype}): not its size-one result")
+                checked.append(name)
+    x = torch.randn((8, 2048), generator=gen, device="cuda")
+    all_gather_future(x, "data", mesh=mesh).force()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's 1.98 GHz
+    t = time.perf_counter()
+    fut = all_gather_future(x, "data", mesh=mesh)
+    y = fut.force() * 2
+    host_ms = (time.perf_counter() - t) * 1e3
+    ended = torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    if ended or host_ms > 25 or not torch.equal(y, x * 2):
+        fail(f"12a: a forced all-gather future held the host {host_ms:.2f} ms behind 50 ms of "
+             f"device work (card done: {ended})")
+    print(f"12a collectives ({smi}): {len(checked)} results of {len(set(checked))} functions "
+          f"(fp32 and bf16, over data and model) bitwise equal to their size-one results; a "
+          f"forced future returned to the host in {host_ms:.3f} ms with 50 ms of device work "
+          f"still queued (no host sync)", flush=True)
+
+
+def run_elastic_resume(mesh, smi) -> None:
+    """12b. Elastic resume at full width: step 10c's last checkpoint of
+    OLMo-1B (params and AdamW state) restored into a template sharded by
+    ``TRAIN_RULES`` on the mesh of ``choose_elastic_plan(1)``
+    (``remesh_state`` of a zero state: every leaf a DTensor with its
+    rule's placements); then 2 steps of ``make_train_step(...,
+    param_pspecs=...)`` under that mesh against 2 unsharded steps from
+    the same restored state (its local tensors: on one rank a shard is
+    the whole leaf), on step 10's batches 10 and 11 under deterministic
+    algorithms: losses and every leaf bitwise equal."""
+    import torch
+
+    from repro_torch import pytree as P
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import abstract_params
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import Checkpointer, abstract_opt_state, make_train_step
+    from repro_torch.train.elastic import choose_elastic_plan, remesh_state
+
+    cfg = get_config("olmo-1b")
+    layout = T.model_layout(cfg)
+    tcfg, ocfg, batch_fn = train_setup(cfg)
+    plan = choose_elastic_plan(1)
+    mesh = make_mesh(plan.mesh_shape[:2], plan.axis_names[:2])
+    a_params = abstract_params(layout)
+    zeros = P.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device="cuda"),
+                       {"params": a_params, "opt_state": abstract_opt_state(a_params, ocfg)})
+
+    def sharded(tree):
+        return remesh_state(tree, layout, SH.TRAIN_RULES, mesh)
+
+    template = {"params": sharded(zeros["params"]),
+                "opt_state": {"m": sharded(zeros["opt_state"]["m"]),
+                              "v": sharded(zeros["opt_state"]["v"]),
+                              "step": zeros["opt_state"]["step"]}}
+    del zeros
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored, step = Checkpointer(str(TRAIN_CKPT)).restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    pairs = list(zip(P.leaves(restored), P.leaves(template)))
+    del template
+    n_dt = sum(SH.is_dtensor(x) for x, _ in pairs)
+    if n_dt != len(pairs) - 1 or not all(
+            not SH.is_dtensor(x) or (x.device_mesh is mesh and x.placements == y.placements
+                                     and x.to_local().shape == x.shape) for x, y in pairs):
+        fail("12b: the restored state is not laid out as its sharded template")
+    del pairs
+    local = P.tree_map(lambda x: x.to_local() if SH.is_dtensor(x) else x, restored)
+    pspecs = SH.param_pspecs(layout, SH.TRAIN_RULES, mesh)
+    steps = 2
+    runs = {}
+    starts = {"unsharded": (local["params"], local["opt_state"]),
+              "sharded": (restored["params"], restored["opt_state"])}
+    del local, restored  # each run holds its own start, until its first step
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label in ("unsharded", "sharded"):
+            params, opt_state = starts.pop(label)
+            fn = make_train_step(cfg, tcfg, ocfg,
+                                 param_pspecs=pspecs if label == "sharded" else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for i in range(steps):
+                batch = batch_fn(step + i)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if label == "sharded":
+                    with SH.set_mesh(mesh):
+                        params, opt_state, metrics = fn(params, opt_state, batch)
+                else:
+                    params, opt_state, metrics = fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                loss = metrics["loss"]
+                losses.append(loss.to_local() if SH.is_dtensor(loss) else loss)
+            runs[label] = (losses, times, torch.cuda.max_memory_allocated(),
+                           [x.to_local() if SH.is_dtensor(x) else x
+                            for x in P.leaves((params, opt_state))])
+            del params, opt_state, metrics
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check_no_launches("12b elastic resume")
+    (lu, tu, pu, fu), (ls, ts, ps, fs) = runs["unsharded"], runs["sharded"]
+    same_loss = all(torch.equal(a, b) for a, b in zip(lu, ls))
+    same = [torch.equal(a, b) for a, b in zip(fu, fs)]
+    if not same_loss or not all(same):
+        worst = max((a.float() - b.float()).abs().max().item() for a, b in zip(fu, fs))
+        fail(f"12b: the sharded continuation differs from the unsharded one: losses "
+             f"{[float(x) for x in lu]} vs {[float(x) for x in ls]}, "
+             f"{same.count(False)}/{len(same)} leaves differ (max |diff| {worst:.3e})")
+    print(f"12b elastic resume {cfg.name} ({smi}): checkpoint step {step} restored into "
+          f"{n_dt} DTensor leaves on the {plan.mesh_shape[:2]} mesh of choose_elastic_plan(1) "
+          f"in {restore_s:.2f} s; {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens: losses {[float(x) for x in ls]} and all {len(same)} leaves bitwise equal "
+          f"to the unsharded steps'; step p50 sharded {statistics.median(ts) * 1e3:.1f} ms, "
+          f"unsharded {statistics.median(tu) * 1e3:.1f} ms (the median of {steps} steps, the "
+          f"first a new step function's first call: sharded "
+          f"{[round(x * 1e3, 1) for x in ts]} ms, unsharded {[round(x * 1e3, 1) for x in tu]}; "
+          f"deterministic algorithms on; host clock, synchronised); peak "
+          f"memory sharded {ps / 1e9:.2f} GB, unsharded {pu / 1e9:.2f} GB", flush=True)
+    for n in (512, 256, 128):
+        p = choose_elastic_plan(n, preferred_pipeline=2)
+        c = p.schedule
+        print(f"12b choose_elastic_plan({n}, preferred_pipeline=2): mesh {p.mesh_shape} "
+              f"{p.axis_names}, {p.num_microbatches} microbatches, schedule "
+              f"{c.schedule} M {c.num_chunks} V {c.interleave} bubble {c.bubble:.4f}",
+              flush=True)
+
+
+def run_dryrun_cells(smi) -> None:
+    """12c. The dry run: every ``all_cells()`` cell on both production
+    mesh shapes (16 x 16 and 2 x 16 x 16), laid out analytically."""
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.launch import dryrun as DR
+
+    t = time.perf_counter()
+    records = []
+    for arch, shape in all_cells():
+        for multi_pod in (False, True):
+            try:
+                records.append(DR.run_cell(arch, shape, multi_pod, save=False, verbose=False))
+            except Exception as e:  # noqa: BLE001 -- named, then the script fails
+                fail(f"12c dry run {arch} {shape} multi_pod={multi_pod}: {e!r}")
+    big = max(records, key=lambda r: r["memory_analysis"]["argument_size_gib"])
+    state = max(records, key=lambda r: r["memory_analysis"]["analytic_state_gib"])
+    unfit = [r["cell"] for r in records if not r["memory_analysis"]["fits"]]
+    print(f"12c dry run: {len(records)} cells ({len(all_cells())} arch x shape, both mesh "
+          f"shapes) in {time.perf_counter() - t:.2f} s of host time; largest argument "
+          f"{big['memory_analysis']['argument_size_gib']:.3f} GiB per chip ({big['cell']}), "
+          f"largest analytic state {state['memory_analysis']['analytic_state_gib']:.3f} GiB "
+          f"({state['cell']}); {len(unfit)} cells above one H100's 80 GB. These are analytic "
+          f"counts on the reference's 256- and 512-chip mesh shapes, not times or memory "
+          f"taken on any chip", flush=True)
+
+
+def run_mesh_phase(smi) -> None:
+    """12. The mesh layer on a one-rank NCCL process group over ``cuda:0``
+    and a (data 1, model 1) ``DeviceMesh``: a, the collectives; b, the
+    elastic resume of full-width OLMo-1B from step 10c's checkpoint; c,
+    the dry run.  No kernel launches."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_mesh
+
+    started = time.perf_counter()
+    K.reset_launches()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            fail(f"12: the mesh runs on {dist.get_backend()}/{mesh.device_type}, not nccl/cuda")
+        print(f"12 mesh phase: NCCL process group of 1 rank on {torch.cuda.get_device_name(0)}, "
+              f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}; {ONE_RANK}", flush=True)
+        run_mesh_collectives(mesh, smi)
+        run_elastic_resume(mesh, smi)
+        run_dryrun_cells(smi)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    check_no_launches("mesh phase")
+    free_card()
+    print(f"mesh phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
+          f"launched 0 times", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # 11. Roofline and trace: the card's attainable rates beside its
 # datasheet peaks, and torch.profiler readings (roofline/trace.py) of a
 # served step, a StreamEngine round and a train step
@@ -2835,16 +3098,23 @@ def print_trace(label, records, steps, smi, unprofiled_s) -> dict:
 def check_trace_launches(label, records, want) -> None:
     """``want``: {stem pattern: (launches a step, the launch counter's
     total over the window)}.  The trace must count exactly that many in
-    every profiled step, and as many in all as the counter."""
+    every profiled step, and as many in all as the counter.  The trace
+    must have lost no launch (a launch call without its device record),
+    and its device times' lead over their launches, the error of the
+    profiler's clock, is printed beside the window's margins."""
     from repro_torch.roofline import trace as TR
 
+    lost, lead = TR.lost_launches(records), TR.clock_lead_us(records)
+    clock = (f"the profiler lost {lost} launches; device times lead their launches by up to "
+             f"{lead / 1e3:.3f} ms, against margins of {TR.MARGIN_S * 1e3:.0f} ms")
     got = {p: TR.launches(records, p) for p in want}
     for p, (per_step, counted) in want.items():
-        if any(c != per_step for c in got[p]) or sum(got[p]) != counted:
+        if lost or any(c != per_step for c in got[p]) or sum(got[p]) != counted:
             fail(f"{label}: the trace counts {got[p]} launches of {p} a step, expected "
-                 f"{per_step} a step and {counted} in all (the launch counters)")
+                 f"{per_step} a step and {counted} in all (the launch counters); {clock}")
     print(f"  {label} launches a step from the trace, equal to the launch counters: "
-          + ", ".join(f"{p} {per_step}" for p, (per_step, _) in want.items()), flush=True)
+          + ", ".join(f"{p} {per_step}" for p, (per_step, _) in want.items()) + f"; {clock}",
+          flush=True)
 
 
 def run_trace_engine(cfg, params, label, smi, steps, want) -> None:
@@ -3145,6 +3415,10 @@ def main() -> int:
     # 10. Training: full-width OLMo-1B, the trainer, fault replay and the
     # planned backward; no kernel launches
     run_training(smi)
+
+    # 12. The mesh layer on a one-rank NCCL group: collectives, the
+    # elastic resume of step 10c's checkpoint, the dry run
+    run_mesh_phase(smi)
 
     source = {
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -129,6 +129,13 @@ SHAPES = {
 }
 
 
+def applicable_shapes(cfg: ArchConfig) -> list[str]:
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        shapes.append("long_500k")  # skip for pure full-attention archs
+    return shapes
+
+
 # smoke-test reduction: same family, tiny dims
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     period = cfg.pattern_period

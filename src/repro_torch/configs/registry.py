@@ -3,7 +3,13 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, smoke_config
+from repro_torch.configs.base import (
+    SHAPES,
+    ArchConfig,
+    ShapeCell,
+    applicable_shapes,
+    smoke_config,
+)
 
 _MODULES = {
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
@@ -28,11 +34,23 @@ def get_config(arch_id: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def all_cells() -> list[tuple[str, str]]:
+    """Every assigned (arch, shape) cell, with inapplicable shapes skipped."""
+    cells = []
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        for shape in applicable_shapes(cfg):
+            cells.append((arch_id, shape))
+    return cells
+
+
 __all__ = [
     "ARCH_IDS",
     "SHAPES",
     "ArchConfig",
     "ShapeCell",
+    "all_cells",
+    "applicable_shapes",
     "get_config",
     "smoke_config",
 ]

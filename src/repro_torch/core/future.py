@@ -24,12 +24,18 @@ card really has:
    which the consuming stage's stream waits on when it forces the
    future.  Stage d's stream is :func:`stage_stream`, one per (device,
    stage), made once and reused.
-3. **Host futures** (:class:`HostFuture`): a thin wrapper over
+3. **Collective futures** (:func:`all_gather_future`,
+   :func:`psum_scatter_future`): the collective is issued now with
+   ``async_op=True`` over the process group of one axis of a
+   ``DeviceMesh`` (the reference's ``axis_name`` under ``shard_map``),
+   and ``force()`` waits on its work.  On NCCL that wait makes the
+   caller's current stream wait on the collective -- an ordering, with
+   no host sync, as for the stream futures; on gloo it blocks the host.
+   The future holds the collective's input and output tensors until it
+   is forced.
+4. **Host futures** (:class:`HostFuture`): a thin wrapper over
    ``concurrent.futures`` for host work (data prefetch, checkpoint
    writes).
-
-The collective futures of the JAX package (``all_gather_future``,
-``psum_scatter_future``) need several cards and are not ported yet.
 """
 from __future__ import annotations
 
@@ -81,16 +87,23 @@ def _cuda_tensors(tree: PyTree) -> list[torch.Tensor]:
 class Future:
     """A value plus, on a CUDA device, the event that marks it ready on
     the side stream that produces it (``None``: ready on the caller's
-    stream already)."""
+    stream already), or the works of the collectives that produce it
+    (with their inputs, held until the future is forced)."""
 
     _value: PyTree
     _forced: bool = False
     _event: torch.cuda.Event | None = None
     _stream: torch.cuda.Stream | None = None
+    _works: list | None = None
+    _held: PyTree = None
 
     def map(self, f: Callable[[PyTree], PyTree]) -> "Future":
         """The Lazy/Future monad's ``map`` — forwards the asynchrony: ``f``
-        is issued on the producing stream, after the value."""
+        is issued on the producing stream, after the value.  A
+        collective's future is forced first (on NCCL an ordering on the
+        caller's stream, no host sync)."""
+        if self._works:
+            self.force()
         if self._stream is None or self._forced:
             return Future(f(self._value), self._forced)
         with torch.cuda.stream(self._stream):
@@ -102,6 +115,8 @@ class Future:
     def flat_map(self, f: Callable[[PyTree], "Future"]) -> "Future":
         """``f`` returns a Future; it runs on the producing stream, so
         whatever it issues there is ordered after the value."""
+        if self._works:
+            self.force()
         if self._stream is None or self._forced:
             return f(self._value)
         with torch.cuda.stream(self._stream):
@@ -119,6 +134,10 @@ class Future:
         caller's later work is ordered after both.
         """
         del anchor
+        if self._works:
+            for work in self._works:
+                work.wait()
+            self._works, self._held = None, None
         if self._event is not None and not self._forced:
             current = torch.cuda.current_stream(self._stream.device)
             current.wait_event(self._event)
@@ -164,6 +183,66 @@ def ppermute_future(x: PyTree, stream: torch.cuda.Stream | None = None) -> Futur
     event = torch.cuda.Event()
     event.record(stream)
     return Future(x, False, event, stream)
+
+
+def axis_group(axis_name: str, mesh=None):
+    """The process group of ``mesh``'s axis ``axis_name`` (``mesh``
+    defaults to the one ``parallel.sharding.set_mesh`` set)."""
+    from repro_torch.parallel import sharding as SH
+
+    mesh = SH.ACTIVE_MESH if mesh is None else mesh
+    if mesh is None:
+        raise ValueError(f"no mesh for axis {axis_name!r}: pass mesh= or use set_mesh")
+    return mesh.get_group(axis_name)
+
+
+def _collective_future(x: PyTree, issue: Callable) -> Future:
+    """``issue(leaf) -> (out, work)`` for every tensor leaf of ``x``, as
+    one future over the outputs."""
+    flat, treedef = P.flatten(x)
+    outs, works = [], []
+    for leaf in flat:
+        out, work = issue(leaf.contiguous())
+        outs.append(out)
+        works.append(work)
+    return Future(P.unflatten(treedef, outs), False, _works=works, _held=flat)
+
+
+def all_gather_future(x: PyTree, axis_name: str, *, tiled: bool = True, mesh=None) -> Future:
+    """Start an all-gather of each rank's ``x`` over the mesh axis; force
+    at the use site to overlap.  ``tiled``: the shards concatenated on
+    dim 0 (``lax.all_gather(tiled=True)``), else stacked on a new dim 0."""
+    import torch.distributed as dist
+
+    group = axis_group(axis_name, mesh)
+    size = dist.get_world_size(group)
+
+    def issue(v):
+        out = v.new_empty((size * v.shape[0],) + tuple(v.shape[1:]))
+        work = dist.all_gather_into_tensor(out, v, group=group, async_op=True)
+        return (out if tiled else out.view((size,) + tuple(v.shape))), work
+
+    return _collective_future(x, issue)
+
+
+def psum_scatter_future(x: PyTree, axis_name: str, *, mesh=None) -> Future:
+    """Start a reduce-scatter (sum over the axis, rank i keeping block i
+    of dim 0: ``lax.psum_scatter(tiled=True)``); force at the use site to
+    overlap."""
+    import torch.distributed as dist
+
+    group = axis_group(axis_name, mesh)
+    size = dist.get_world_size(group)
+
+    def issue(v):
+        if v.shape[0] % size:
+            raise ValueError(f"dim 0 of {tuple(v.shape)} does not split over {size} ranks")
+        out = v.new_empty((v.shape[0] // size,) + tuple(v.shape[1:]))
+        work = dist.reduce_scatter_tensor(out, v, op=dist.ReduceOp.SUM, group=group,
+                                          async_op=True)
+        return out, work
+
+    return _collective_future(x, issue)
 
 
 class HostFuture:

@@ -2,8 +2,10 @@
 
 PyTorch port of ``repro.models.layers``: the same functions on the same
 parameter dicts and layouts, op for op (fp32 upcasts and casts back at
-the same places).  The JAX package's sharding hooks (``constrain*``)
-have no counterpart on one device and are dropped.
+the same places).  The sharding hooks (``constrain*``) sit where the
+reference's do: under a mesh (``parallel.sharding.set_mesh``) they
+redistribute a DTensor activation to the canonical layout, and without
+one they return their input itself.
 
 Attention comes in three interchangeable implementations (``attn_impl``):
 
@@ -26,8 +28,38 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import get_impl
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel import sharding as SH
 
 PyTree = Any
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints
+#
+# Under a mesh these pin the canonical layout of the reference (batch over
+# (pod, data), heads/ffn over model, residual d unsharded) on DTensor
+# activations.  Without a mesh a hook costs one global read.
+# ---------------------------------------------------------------------------
+
+_BATCH = ("pod", "data")
+
+
+def constrain(x, *axes):
+    """maybe_constrain with ('pod','data') batch plus given tail axes."""
+    if SH.ACTIVE_MESH is None:
+        return x
+    return SH.maybe_constrain(x, SH.PartitionSpec(_BATCH, *axes))
+
+
+def constrain_res(x):  # (B, S, d)
+    return constrain(x, None, None)
+
+
+def constrain_heads(x):  # (B, S, H|KV, dh)
+    return constrain(x, None, "model", None)
+
+
+def constrain_ffn(x):  # (B, S, f)
+    return constrain(x, None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +131,20 @@ def attention_dense(
     ``q_offset``: absolute position of q[0] (decode: Sq=1, offset=pos).
     ``kv_len``: number of valid KV positions (rest masked; cache padding),
     an int or a (B,)/(B,1) tensor.  A row with no valid key yields 0.
+
+    Under a mesh the operands are pinned batch-sharded with their heads
+    whole, as the chunked path pins its views (the reference's dense path
+    has no pin: GSPMD partitions the products as they come, but DTensor
+    in torch 2.11 cannot fold the score product's (batch, kv-head) dims
+    when both are sharded; 2.13 can).
     """
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if h % kv:
         raise ValueError(f"num_heads {h} is not a multiple of kv heads {kv}")
     scale = softmax_scale or dh**-0.5
+    if SH.ACTIVE_MESH is not None:
+        q, k, v = (constrain(t, None, None, None) for t in (q, k, v))
     qg = q.reshape(b, sq, kv, h // kv, dh)
     scores = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float()) * scale
     kv_pos = torch.arange(sk, device=q.device)
@@ -158,9 +198,10 @@ def attention_chunked(
     orig_sq, sq, sk = sq, sq_pad, sk_pad
     nq, nk = sq // q_chunk, sk // kv_chunk
     g = h // kv
-    qg = q.reshape(b, nq, q_chunk, kv, g, dh)
-    kc = k.reshape(b, nk, kv_chunk, kv, dh)
-    vc = v.reshape(b, nk, kv_chunk, kv, dh)
+    # batch sharding re-pinned on the chunked views, as in the reference
+    qg = constrain(q.reshape(b, nq, q_chunk, kv, g, dh), None, None, None, None, None)
+    kc = constrain(k.reshape(b, nk, kv_chunk, kv, dh), None, None, None, None)
+    vc = constrain(v.reshape(b, nk, kv_chunk, kv, dh), None, None, None, None)
     klen = None if kv_len is None else torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
 
     def block_update(carry, q_blk, k_blk, v_blk, qi, kj):
@@ -273,9 +314,9 @@ def _maybe_qk_norm(params, q, k, eps):
 
 def attn_project_qkv(params, x, cfg, positions):
     """x: (B,S,d) -> q,k,v with rope + optional bias/qk-norm."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = constrain_heads(torch.einsum("bsd,dhk->bshk", x, params["wq"]))
+    k = constrain_heads(torch.einsum("bsd,dhk->bshk", x, params["wk"]))
+    v = constrain_heads(torch.einsum("bsd,dhk->bshk", x, params["wv"]))
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -287,7 +328,7 @@ def attn_project_qkv(params, x, cfg, positions):
 
 
 def attn_out(params, ctx):
-    return torch.einsum("bshk,hkd->bsd", ctx, params["wo"])
+    return constrain_res(torch.einsum("bshk,hkd->bsd", constrain_heads(ctx), params["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +347,10 @@ def mlp_layout(cfg, stacked: tuple[int, ...] = ()):
 
 
 def mlp(params, x):
-    gate = torch.einsum("bsd,df->bsf", x, params["w_gate"])
-    up = torch.einsum("bsd,df->bsf", x, params["w_up"])
+    gate = constrain_ffn(torch.einsum("bsd,df->bsf", x, params["w_gate"]))
+    up = constrain_ffn(torch.einsum("bsd,df->bsf", x, params["w_up"]))
     act = F.silu(gate.float()).to(x.dtype) * up
-    return torch.einsum("bsf,fd->bsd", act, params["w_down"])
+    return constrain_res(torch.einsum("bsf,fd->bsd", act, params["w_down"]))
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +381,11 @@ def head_layout(cfg):
 def logits(head_params, embed_params, x, cfg):
     """LM head in the model dtype, upcast to fp32 after the product."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, embed_params["embedding"]).float()
-    return torch.einsum("bsd,dv->bsv", x, head_params["w"]).float()
+        # contraction over d (unsharded) -> logits sharded over vocab
+        return constrain(
+            torch.einsum("bsd,vd->bsv", x, embed_params["embedding"]), None, "model"
+        ).float()
+    return constrain(torch.einsum("bsd,dv->bsv", x, head_params["w"]), None, "model").float()
 
 
 def embed_lookup(table, tokens):

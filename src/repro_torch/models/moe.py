@@ -9,8 +9,15 @@ experts' SwiGLU as batched matrix products, and combined per token.
 The reference's products are plain einsums outside any Pallas kernel, so
 the port's are plain PyTorch matrix products.  It keeps the dense
 ``(E, C, d)`` buffer: every expert's weights are read on every call,
-occupied or not.  The reference blocks the dispatch per data shard of
-its mesh; on one card that is one block, and no sharding is ported.
+occupied or not.  Under a mesh the dispatch is blocked per data shard,
+as the reference's is: the tokens split into one block per ``(pod,
+data)`` rank, each ranked and given capacity on its own.  A sharded
+call ranks and fills its block on the rank's own tokens, runs the
+experts expert-parallel over ``model`` (the reference's two
+``maybe_constrain``s) and combines on the rank, so the layer stays
+data-parallel; it needs the token count to divide over the ``(pod,
+data)`` ranks.  Under an :class:`~repro_torch.parallel.sharding.
+AbstractMesh` the same blocks run on plain tensors.
 
 Nothing on the path reads a value back to the host or makes a shape
 from data: the capacity follows from the call's token count alone, a
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel import sharding as SH
 
 # The list :func:`record_routes` collects routes in, or None; the
 # iterator over the records :func:`replay_routes` imposes, or None.
@@ -71,7 +79,9 @@ def record_routes():
     """Collect, for every :func:`moe_apply` call made inside the block, a
     dict of its ``expert_ids`` (t, k), ``rank`` and ``keep`` (t * k,),
     the fp32 router ``logits`` (t, E) and the ``capacity``, as tensors on
-    the call's device.  Yields the list."""
+    the call's device (``rank`` within each dispatch block; a sharded
+    call records its rank's block of ids, ranks and keeps).  Yields the
+    list."""
     routes: list = []
     token = _ROUTES.set(routes)
     try:
@@ -157,6 +167,90 @@ def _swiglu(x, w_gate, w_up, w_down):
     return torch.matmul(act, w_down)
 
 
+# the reference's dispatch buffer (DS, E, C, d): blocks over (pod, data),
+# experts over model; the experts' weights (E, ., .) over model
+_BLOCKS = ("pod", "data")
+_BUF = SH.PartitionSpec(_BLOCKS, "model", None, None)
+_EXPERTS = SH.PartitionSpec("model", None, None)
+
+
+def _data_shards(t: int) -> int:
+    """Blocks the dispatch of ``t`` tokens is split into: the ``(pod,
+    data)`` shards of the mesh set, halved until they divide ``t``; 1
+    without a mesh (the reference's ``_data_shards``)."""
+    if SH.ACTIVE_MESH is None:
+        return 1
+    sizes = SH.mesh_axes(SH.ACTIVE_MESH)
+    shards = math.prod(sizes.get(a, 1) for a in _BLOCKS)
+    while shards > 1 and t % shards != 0:
+        shards //= 2
+    return max(shards, 1)
+
+
+def _write_buffer(xf, dest, k: int, rows: int):
+    """The dispatch buffer (rows, d): assignment ``tok * k + j`` writes
+    token ``tok`` into row ``dest``; dropped assignments all land in the
+    spare last row."""
+    flat_tok = torch.arange(xf.shape[0], device=xf.device).repeat_interleave(k)
+    buf = xf.new_zeros((rows, xf.shape[1]))
+    buf[dest] = xf[flat_tok]
+    return buf
+
+
+def _combine(out, gate_vals, dest, keep, k: int):
+    """Token tok's k contributions from the experts' output rows (E * C,
+    d), zeroed where dropped and scaled by the gate in the output's dtype,
+    summed j = 0 .. k-1 with a rounding after each add, as the
+    reference's sequential scatter-add does."""
+    t, d = gate_vals.shape[0], out.shape[-1]
+    contrib = out[dest.clamp(max=out.shape[0] - 1)]
+    contrib = torch.where(keep[:, None], contrib, 0) * gate_vals.reshape(-1, 1).to(out.dtype)
+    contrib = contrib.view(t, k, d)
+    y = out.new_zeros((t, d))
+    for j in range(k):
+        y = y + contrib[:, j]
+    return y
+
+
+def _block(xb, eids, gates, w, e: int, k: int, capacity: int):
+    """One dispatch block on plain tensors: rank, fill, the experts'
+    SwiGLU, combine.  Returns (y, rank, keep)."""
+    rank, keep, dest = dispatch(eids, e, capacity)
+    buf = _write_buffer(xb, dest, k, e * capacity + 1)
+    out = _swiglu(buf[:-1].view(e, capacity, xb.shape[1]), *w)
+    return _combine(out.view(e * capacity, -1), gates, dest, keep, k), rank, keep
+
+
+def _sharded_blocks(xf, expert_ids, gate_vals, w, e: int, k: int, capacity: int, ds: int):
+    """The dispatch on DTensors, one block a ``(pod, data)`` rank: each
+    rank ranks and fills the buffer from its own tokens, runs its
+    ``model`` share of the experts on its block, gathers the block's
+    expert outputs over ``model`` and combines its tokens.  DTensor has
+    no sharding strategy for the ranking's sort and searchsorted, so
+    the ranking and the indexed write and read work on the local block.
+    Returns (y as a DTensor, and this rank's expert ids, rank and keep)."""
+    mesh = SH.ACTIVE_MESH
+    sizes = SH.mesh_axes(mesh)
+    if ds != math.prod(sizes.get(a, 1) for a in _BLOCKS):
+        raise NotImplementedError(
+            f"a sharded MoE dispatch takes one block a (pod, data) rank: {xf.shape[0]} "
+            f"tokens do not divide over {math.prod(sizes.get(a, 1) for a in _BLOCKS)}")
+    d = xf.shape[1]
+    tok = SH.PartitionSpec(_BLOCKS, None)
+    xl, el, gl = (SH.local_shard(v, tok) for v in (xf, expert_ids, gate_vals))
+    rank, keep, dest = dispatch(el, e, capacity)
+    buf = _write_buffer(xl, dest, k, e * capacity + 1)[:-1].view(1, e, capacity, d)
+    # the experts over model where they divide over it, else every rank's
+    bspec = SH.fit_spec(_BUF, (ds, e, capacity, d), mesh)
+    buf = SH.maybe_constrain(SH.from_local(buf, SH.PartitionSpec(_BLOCKS)), bspec)
+    wspec = SH.fit_spec(_EXPERTS, tuple(w[0].shape), mesh)
+    wl = [SH.local_shard(x, wspec, partial_grad_over=_BLOCKS) for x in w]
+    out = _swiglu(SH.local_shard(buf, bspec)[0], *wl)
+    out = SH.maybe_constrain(SH.from_local(out[None], bspec), bspec)
+    out = SH.local_shard(out, SH.PartitionSpec(_BLOCKS))[0].view(e * capacity, d)
+    return SH.from_local(_combine(out, gl, dest, keep, k), tok), el, rank, keep
+
+
 def moe_apply(params, x: torch.Tensor, moe: MoEConfig, *, capacity: int | None = None):
     """x: (B, S, d) -> (y, aux).  Token-drop routing with a capacity
     bound; ``aux`` holds the load-balance loss, the router z-loss and the
@@ -175,28 +269,23 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, *, capacity: int | None =
     lb_loss = e * torch.sum(counts * (1.0 / (t * k)) * probs.mean(dim=0))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
+    ds = _data_shards(t)
     if capacity is None:
-        capacity = expert_capacity(t, moe)
-    rank, keep, dest = dispatch(expert_ids, e, capacity)
+        capacity = expert_capacity(t // ds, moe)
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+    if SH.is_sharded(xf):
+        y, expert_ids, rank, keep = _sharded_blocks(xf, expert_ids, gate_vals, w, e, k,
+                                                    capacity, ds)
+        kept = SH.from_local(keep.float(), SH.PartitionSpec(_BLOCKS))
+    else:
+        blocks = [_block(xb, eb, gb, w, e, k, capacity)
+                  for xb, eb, gb in zip(xf.chunk(ds), expert_ids.chunk(ds), gate_vals.chunk(ds))]
+        y, rank, keep = blocks[0] if ds == 1 else (torch.cat(z) for z in zip(*blocks))
+        kept = keep.float()
     routes = _ROUTES.get()
     if routes is not None:
         routes.append(dict(expert_ids=expert_ids, rank=rank, keep=keep, logits=logits,
                            capacity=capacity))
-    flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = x.new_zeros((e * capacity + 1, d))
-    buf[dest] = xf[flat_tok]  # dropped assignments all land in the spare row
-    out = _swiglu(buf[:-1].view(e, capacity, d), params["w_gate"], params["w_up"],
-                  params["w_down"]).view(e * capacity, d)
-
-    # combine: token tok's k contributions, zeroed where dropped and
-    # scaled by the gate in x's dtype, summed j = 0 .. k-1 with a rounding
-    # after each add, as the reference's sequential scatter-add does
-    contrib = out[dest.clamp(max=e * capacity - 1)]
-    contrib = torch.where(keep[:, None], contrib, 0) * gate_vals.reshape(-1, 1).to(x.dtype)
-    contrib = contrib.view(t, k, d)
-    y = x.new_zeros((t, d))
-    for j in range(k):
-        y = y + contrib[:, j]
 
     if "shared" in params:
         sh = params["shared"]
@@ -205,6 +294,6 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, *, capacity: int | None =
     aux = {
         "moe_lb_loss": lb_loss,
         "moe_z_loss": z_loss,
-        "moe_drop_fraction": 1.0 - torch.mean(keep.float()),
+        "moe_drop_fraction": 1.0 - torch.mean(kept),
     }
     return y.view(b, s, d), aux

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.kernels import get_impl
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel import sharding as SH
 
 
 def ssm_dims(cfg: ArchConfig, ssm: SSMConfig):
@@ -101,7 +102,10 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, d_skip, *, chunk: int, initial_state=Non
         b_b = b_mat[:, sl].float()  # (B,Q,G,N)
         c_b = c_mat[:, sl].float()
         da = dt_b * a  # (B,Q,H), negative
-        cum = torch.cumsum(da, dim=1)
+        # on a DTensor (batch-sharded, heads whole) each rank's shard:
+        # DTensor in torch 2.11 has no strategy for the backward's flip
+        cum = (SH.on_shards(torch.cumsum, da, 1) if SH.is_sharded(da)
+               else torch.cumsum(da, dim=1))
         total = cum[:, -1, :]  # (B,H)
 
         # Intra-chunk: L[i,j] = exp(cum_i - cum_j) for j<=i (Q,Q per head).
@@ -161,7 +165,7 @@ def ssm_block(params, x, cfg: ArchConfig, ssm: SSMConfig, *, cache=None, kernels
     (``"cuda" | "plain"``, see the module docstring).
     """
     d_inner, num_heads, conv_dim, _ = ssm_dims(cfg, ssm)
-    proj = torch.einsum("bsd,dp->bsp", x, params["in_proj"])
+    proj = L.constrain_ffn(torch.einsum("bsd,dp->bsp", x, params["in_proj"]))
     z, xs, bb, cc, dt = _split_proj(proj, cfg, ssm)
 
     conv_in = torch.cat([xs, bb, cc], dim=-1)
@@ -178,17 +182,28 @@ def ssm_block(params, x, cfg: ArchConfig, ssm: SSMConfig, *, cache=None, kernels
     cm = cc.reshape(bsz, s, ssm.num_groups, ssm.state_dim)
     a = -torch.exp(params["A_log"].float())
     dt_act = F.softplus(dt.float() + params["dt_bias"])
+    d_skip = params["D"]
+    if SH.ACTIVE_MESH is not None:
+        # the scan's operands pinned batch-sharded with their heads whole,
+        # the per-head parameters replicated (the reference has no pin;
+        # DTensor in torch 2.11 cannot fold a product's (batch, head) dims
+        # when both are sharded)
+        xh, bm, cm, dt_act = (L.constrain(t, *(None,) * (t.dim() - 1))
+                              for t in (xh, bm, cm, dt_act))
+        a, d_skip = (SH.maybe_constrain(t, SH.PartitionSpec()) for t in (a, d_skip))
 
     init_state = None if cache is None else cache["state"]
     if cache is not None and s == 1:
         # Single-token decode: closed-form state update (no chunking).
-        y, final = _ssd_decode_step(xh, dt_act, a, bm, cm, params["D"], init_state)
+        y, final = _ssd_decode_step(xh, dt_act, a, bm, cm, d_skip, init_state)
     else:
         chunk = min(ssm.chunk_size, s)
         ssd = get_impl("ssd", "cuda") if kernels == "cuda" and s > 1 else ssd_chunked
-        y, final = ssd(xh, dt_act, a, bm, cm, params["D"], chunk=chunk,
+        y, final = ssd(xh, dt_act, a, bm, cm, d_skip, chunk=chunk,
                        initial_state=init_state)
 
+    if SH.ACTIVE_MESH is not None:
+        y = L.constrain(y, None, None, None)  # and so its gradient
     y = y.reshape(bsz, s, d_inner)
     # gated RMSNorm (Mamba-2): norm(y * silu(z)); the kernel computes the
     # gate in the same launch, reading z in place from proj
@@ -197,7 +212,7 @@ def ssm_block(params, x, cfg: ArchConfig, ssm: SSMConfig, *, cache=None, kernels
     else:
         gated = y * F.silu(z.float()).to(y.dtype)
         y = L.rmsnorm({"scale": params["norm_scale"]}, gated, cfg.norm_eps)
-    out = torch.einsum("bsi,id->bsd", y, params["out_proj"])
+    out = L.constrain_res(torch.einsum("bsi,id->bsd", y, params["out_proj"]))
     return out, {"conv": new_conv, "state": final}
 
 

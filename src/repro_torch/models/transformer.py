@@ -170,6 +170,23 @@ def cache_layout(cfg: ArchConfig, batch: int, max_len: int) -> PyTree:
     return caches
 
 
+def cache_logical_axes(cfg: ArchConfig) -> PyTree:
+    """Logical axes per cache leaf (for sharding rules): the vision K/V
+    of a cross-attention block is not sharded on its sequence."""
+    axes: dict[str, PyTree] = {}
+    for i, plan in enumerate(block_plans(cfg)):
+        if plan.mixer in ("attn", "cross_attn"):
+            seq = "kv_seq" if plan.mixer == "attn" else None
+            ax = ("layers", "batch", seq, "kv_heads", "head_dim")
+            axes[f"block{i}"] = {"k": ax, "v": ax}
+        else:
+            axes[f"block{i}"] = {
+                "conv": ("layers", "batch", None, "ffn"),
+                "state": ("layers", "batch", "heads", "state", None),
+            }
+    return axes
+
+
 def init_cache(
     cfg: ArchConfig, batch: int, max_len: int, device: str | torch.device = "cuda"
 ) -> PyTree:
@@ -381,7 +398,7 @@ def _apply_group(
                 cache_i["state"].copy_(c_new["state"])
             if collect_kv:
                 kv_out[name] = c_new
-        x = x + out
+        x = L.constrain_res(x + out)
         if plan.ffn != "none":
             h = _norm(cfg, blk.get("norm_ffn"), x, kernels)
             if plan.ffn == "moe":
@@ -390,7 +407,7 @@ def _apply_group(
                 num_moe += 1
             else:
                 out = L.mlp(blk["mlp"], h)
-            x = x + out
+            x = L.constrain_res(x + out)
     if num_moe:
         aux = {key: v / num_moe for key, v in aux.items()}
     return x, kv_out, aux

@@ -2,7 +2,9 @@
 
 The port's one pytree helper.  Containers are ``None`` (no leaves),
 tuples (named ones too), lists, dicts and the dataclasses registered
-with :func:`register_dataclass`; anything else is a leaf.  Dicts flatten
+with :func:`register_dataclass`; anything else is a leaf, and so is a
+tuple whose class sets ``pytree_leaf = True`` (``parallel.sharding.
+PartitionSpec``, which ``jax.tree`` keeps whole too).  Dicts flatten
 in sorted-key order and rebuild with their keys sorted, as ``jax.tree``
 does, so that leaf order -- which ``leading_axis_size``, structure
 checks and zipped ``tree_map`` calls observe -- is the reference's.
@@ -61,7 +63,7 @@ def _children(tree) -> tuple[Any, Any, tuple]:
         return dict, keys, tuple(tree[k] for k in keys)
     if t is list:
         return list, None, tuple(tree)
-    if isinstance(tree, tuple):
+    if isinstance(tree, tuple) and not getattr(t, "pytree_leaf", False):
         return tuple if t is tuple else t, t, tuple(tree)
     if t in _DATACLASSES:
         fields = _DATACLASSES[t]

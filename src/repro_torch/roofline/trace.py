@@ -22,6 +22,9 @@ tests can feed hand-made lists:
   innermost host op (an ``aten::`` op or a ``cuda*`` runtime call) that
   was running on the issuing thread when the gap began;
 * :func:`kernel_time_by_name` -- device time summed by kernel stem;
+* :func:`lost_launches` and :func:`clock_lead_us` -- launch calls whose
+  device record the profiler dropped, and how far its device times lead
+  their launches (no count of launches from a trace that lost some holds);
 * :func:`launches`, :func:`launch_streams` and :func:`only_on_streams`
   -- launches of a kernel in each profiled step, the streams it ran on,
   and whether it ran on given streams only (the counterparts of
@@ -51,6 +54,7 @@ from typing import NamedTuple
 
 STEP_SPAN = "profiled_step"  # a ``record_function`` span around each profiled step
 WARMUP_CYCLES = 20_000_000   # the warm-up phase's device spin (about 10 ms)
+MARGIN_S = 1.0               # host-only time kept before the first and after the last step
 
 _DEVICE_KINDS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
 _HOST_KINDS = {"cpu_op": "op", "user_annotation": "span", "cuda_runtime": "runtime",
@@ -172,7 +176,17 @@ def profile_steps(step, steps: int, *, shapes: bool = True) -> list[Record]:
     ends after a synchronise; returns the run's records.  A warm-up phase
     runs first, whose events the profiler discards: tracing may lose the
     first device activities after it starts (a step's first launches
-    went missing without one)."""
+    went missing without one).
+
+    The kept window opens :data:`MARGIN_S` before the first step and
+    closes as long after the last, with no device work in either margin.
+    The profiler drops every device record whose time, moved onto the
+    host's clock, lies outside that window, and the move can be off by
+    milliseconds or more (kernels stamped before their own launch call:
+    :func:`clock_lead_us`), so without the margins a kernel near either
+    end of the steps can go missing from the trace."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
@@ -186,10 +200,12 @@ def profile_steps(step, steps: int, *, shapes: bool = True) -> list[Record]:
         torch.cuda._sleep(WARMUP_CYCLES)
         torch.cuda.synchronize()
         prof.step()  # the warm-up ends: the trace that is kept starts
+        time.sleep(MARGIN_S)
         for i in range(steps):
             with record_function(STEP_SPAN):
                 step(i)
                 torch.cuda.synchronize()
+        time.sleep(MARGIN_S)
     return records_from_profile(prof, shapes=shapes)
 
 
@@ -394,6 +410,36 @@ def launches(records, pattern: str, step: str = STEP_SPAN) -> list[int]:
         if i >= 0 and t <= spans[i].end:
             counts[i] += 1
     return counts
+
+
+_LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel", "GraphLaunch")
+
+
+def _is_launch(r) -> bool:
+    """A runtime call that puts work on the device: cudaLaunchKernel(ExC),
+    cuLaunchKernel(Ex), cudaGraphLaunch (whose kernels carry its
+    correlation id), ...; not cudaLaunchHostFunc."""
+    return r.kind == "runtime" and any(c in r.name for c in _LAUNCH_CALLS)
+
+
+def lost_launches(records) -> int:
+    """Launch calls whose device record is missing: runtime calls that
+    launch device work whose correlation id no device record carries.
+    0 in a complete trace; more means the profiler dropped device
+    records, and no count of launches from it holds."""
+    launched = {r.corr for r in records if r.where == "device"}
+    return sum(1 for r in records if _is_launch(r) and r.corr not in launched)
+
+
+def clock_lead_us(records) -> float:
+    """How far, at most, a device record starts before the runtime call
+    that launched it, in us (0 if none does): the error of the
+    profiler's move of device times onto the host's clock, since no
+    kernel starts before its launch."""
+    calls = {r.corr: r for r in records if _is_launch(r) and r.corr}
+    leads = [calls[r.corr].start - r.start for r in records
+             if r.where == "device" and r.corr in calls]
+    return max([0.0, *leads])
 
 
 def launch_streams(records, pattern: str) -> list[int]:

@@ -1,6 +1,8 @@
 """Training (port of ``repro.train``): AdamW, gradient compression,
-checkpoints in the reference's layout, the resilient loop and the train
-step.  ``repro.train.elastic`` (mesh re-sharding) is not ported yet."""
+checkpoints in the reference's layout, the resilient loop, the train
+step (sharded by ``param_pspecs`` under a mesh) and, in
+:mod:`repro_torch.train.elastic`, re-meshing and re-planning on a change
+of device count."""
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.compression import compress_decompress, init_error_state
 from repro_torch.train.fault import FaultConfig, ResilientLoop

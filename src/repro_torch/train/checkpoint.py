@@ -36,6 +36,7 @@ import torch
 from repro_torch import pytree as P
 from repro_torch import resolve_device
 from repro_torch.core.future import HostFuture
+from repro_torch.parallel import sharding as SH
 
 PyTree = Any
 
@@ -45,7 +46,11 @@ _BF16_RECORD = np.dtype("V2")
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor's host copy as the reference writes it (bf16 as ``|V2``)."""
+    """A tensor's host copy as the reference writes it (bf16 as ``|V2``);
+    a DTensor is gathered whole first (a collective: every rank of its
+    mesh calls it), as ``np.asarray`` gathers a sharded ``jax.Array``."""
+    if SH.is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_RECORD)
@@ -190,7 +195,10 @@ class Checkpointer:
         Each leaf comes back in its template leaf's dtype, on the template
         leaf's device, or on ``device`` for a meta template leaf
         (:func:`repro_torch.models.params.abstract_params`,
-        :func:`repro_torch.train.optimizer.abstract_opt_state`).
+        :func:`repro_torch.train.optimizer.abstract_opt_state`).  A
+        template leaf that is a DTensor gives a DTensor on its mesh with
+        its placements, each rank keeping its shard of the array it read
+        (the reference ``device_put``s onto ``leaf.sharding``).
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -203,6 +211,12 @@ class Checkpointer:
         for key, leaf in P.flatten_with_paths(template):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing {key}")
+            if SH.is_dtensor(leaf):
+                mesh = leaf.device_mesh
+                value = from_numpy(arrays.pop(key)).to(device=mesh.device_type,
+                                                       dtype=leaf.dtype)
+                leaves.append(SH.distribute(value, mesh, leaf.placements))
+                continue
             target = leaf.device
             if target.type == "meta":
                 target = resolve_device(device or "cuda")

@@ -42,8 +42,9 @@ def _step_device(params: PyTree) -> torch.device:
 
 def init_opt_state(params: PyTree, cfg: AdamWConfig) -> PyTree:
     """Zero moments in ``cfg.moment_dtype`` beside each parameter, and
-    the step count (an int32 scalar on the parameters' device)."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    the step count (an int32 scalar on the parameters' device).  A
+    DTensor parameter gets DTensor moments with its placements."""
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.moment_dtype)
     return {
         "m": P.tree_map(zeros, params),
         "v": P.tree_map(zeros, params),

@@ -26,6 +26,7 @@ from repro_torch.core import graph as G
 from repro_torch.core.chunking import chunk_axis
 from repro_torch.kernels import KERNEL_MODES
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
 from repro_torch.train import optimizer as O
 
 PyTree = Any
@@ -97,9 +98,15 @@ def lm_loss(params, cfg: ArchConfig, batch: PyTree, tcfg: TrainConfig):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
     lse = torch.logsumexp(logits, dim=-1)  # (B, S)
-    # the gold logit: a gather is exact (the reference's masked sum adds
-    # zeros to it)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if SH.is_sharded(logits):
+        # the reference's masked sum: it stays shard-local on vocab-sharded
+        # logits (DTensor's gather there leaves a partial that the next op
+        # cannot reduce)
+        vocab_iota = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.sum(torch.where(vocab_iota == labels[..., None], logits, 0.0), dim=-1)
+    else:
+        # a gather is exact (the reference's masked sum adds zeros to it)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     ce = (lse - gold) * mask
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(ce) / denom
@@ -133,10 +140,24 @@ def value_and_grad(params, cfg: ArchConfig, batch: PyTree, tcfg: TrainConfig):
     return (total.detach(), metrics), P.unflatten(treedef, grads)
 
 
-def accumulate_grads(params, cfg: ArchConfig, batch: PyTree, tcfg: TrainConfig):
+def _constrain(tree: PyTree, param_pspecs: PyTree | None) -> PyTree:
+    if param_pspecs is None:
+        return tree
+    return P.tree_map(SH.maybe_constrain, tree, param_pspecs)
+
+
+def accumulate_grads(
+    params, cfg: ArchConfig, batch: PyTree, tcfg: TrainConfig,
+    param_pspecs: PyTree | None = None,
+):
     """Microbatches through a Lazy scan, gradients summed in
     ``accum_dtype`` in microbatch order and scaled by ``1/M`` (the
-    reference's ``lax.scan``).  Returns ``(grads, metrics)``."""
+    reference's ``lax.scan``).  Returns ``(grads, metrics)``.
+
+    With ``param_pspecs`` (the parameters' specs) under a mesh, the
+    per-microbatch gradients, the accumulator and its zeros are
+    constrained to the parameters' sharding, as in the reference: the
+    data-axis reduction of a gradient then lands on its FSDP shard."""
     if tcfg.num_microbatches == 1:
         (_, metrics), grads = value_and_grad(params, cfg, batch, tcfg)
         return grads, metrics
@@ -146,15 +167,17 @@ def accumulate_grads(params, cfg: ArchConfig, batch: PyTree, tcfg: TrainConfig):
     def step(carry, mb):
         acc, metrics_acc = carry
         (_, metrics), grads = value_and_grad(params, cfg, mb, tcfg)
+        grads = _constrain(grads, param_pspecs)
         for a, g in zip(P.leaves(acc), P.leaves(grads)):
             a.add_(g.to(tcfg.accum_dtype))
+        acc = _constrain(acc, param_pspecs)
         metrics_acc = {k: metrics_acc[k] + metrics[k] for k in metrics_acc}
         return (acc, metrics_acc), None
 
     device = P.leaves(params)[0].device
-    zeros = P.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=tcfg.accum_dtype, device=p.device), params
-    )
+    zeros = _constrain(P.tree_map(
+        lambda p: torch.zeros_like(p, dtype=tcfg.accum_dtype), params
+    ), param_pspecs)
     metrics0 = {k: torch.zeros((), dtype=torch.float32, device=device) for k in _METRICS}
     (grads, metrics), _ = G.scan(step, (zeros, metrics0), micro)
     inv = 1.0 / tcfg.num_microbatches
@@ -187,15 +210,26 @@ def resolve_train_kernels(tcfg: TrainConfig) -> str:
     return "plain"
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, ocfg: O.AdamWConfig):
+def make_train_step(
+    cfg: ArchConfig, tcfg: TrainConfig, ocfg: O.AdamWConfig,
+    param_pspecs: PyTree | None = None,
+):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; functional, the given trees are left as they
-    were."""
+    were.
+
+    Sharded training: the parameters (and moments) are DTensors laid out
+    by ``param_shardings``, ``param_pspecs`` their specs, and the step
+    runs under ``sharding.set_mesh(mesh)``; plain tensors it meets (the
+    batch, positions, masks) count as replicated there."""
     tcfg = dataclasses.replace(tcfg, kernels=resolve_train_kernels(tcfg))
 
     def train_step(params, opt_state, batch):
-        grads, metrics = accumulate_grads(params, cfg, batch, tcfg)
-        params, opt_state, opt_metrics = O.adamw_update(params, grads, opt_state, cfg=ocfg)
+        with SH.replicate_plain_tensors():
+            grads, metrics = accumulate_grads(params, cfg, batch, tcfg, param_pspecs)
+            params, opt_state, opt_metrics = O.adamw_update(
+                params, grads, opt_state, cfg=ocfg
+            )
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

@@ -1502,6 +1502,7 @@ def test_trace_counts_a_decode_steps_launches():
     from repro_torch.roofline import trace as TR
 
     records, slab = _profiled_decode_steps(3)
+    assert TR.lost_launches(records) == 0
     assert TR.launches(records, "decode_attention_kernel") == [2, 2, 2]
     assert TR.launches(records, "emit_untied_tma_kernel") == [1, 1, 1]
     assert TR.launches(records, "rmsnorm_*") == [4, 4, 4]
@@ -1568,3 +1569,108 @@ def test_torch_serve_lm_runs_on_the_card(capsys):
     done = mod.main([])
     assert len(done) == 12 and all(len(r.out_tokens) == 8 for r in done)
     assert "device=cuda" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The mesh layer on a one-rank NCCL process group (NCCL refuses two ranks
+# on one GPU; tests/test_torch_mesh.py runs four gloo ranks on the CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh():
+    """A (data 1, model 1) mesh over a one-rank NCCL group on cuda:0."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_one_rank_nccl_collectives_are_their_size_one_results(nccl_mesh, dtype):
+    from repro_torch.core.future import all_gather_future, psum_scatter_future
+    from repro_torch.parallel import collectives as C
+    from repro_torch.train.compression import compress_decompress
+
+    x = torch.randn((6, 130), generator=_gen(3), device="cuda").to(dtype)
+    for axis in ("data", "model"):
+        assert torch.equal(all_gather_future(x, axis, mesh=nccl_mesh).force(), x)
+        assert torch.equal(all_gather_future({"a": x}, axis, tiled=False,
+                                             mesh=nccl_mesh).force()["a"], x[None])
+        assert torch.equal(psum_scatter_future(x, axis, mesh=nccl_mesh).force(), x)
+        ring = C.ring_all_gather_overlapped(x, axis, lambda s, slot: s + slot, mesh=nccl_mesh)
+        assert len(ring) == 1 and torch.equal(ring[0], x)
+        assert torch.equal(C.reduce_scatter_then_all_gather(x, axis, mesh=nccl_mesh).force(), x)
+        red, err = C.pod_allreduce_compressed({"g": x.float()}, axis, None, mesh=nccl_mesh)
+        q, want_err = compress_decompress({"g": x.float()}, None)
+        assert torch.equal(red["g"], q["g"].to(torch.bfloat16).float())
+        assert torch.equal(err["g"], want_err["g"])
+    assert K.LAUNCHES == {op: 0 for op in K.OPS}
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "chunked"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen1.5-4b", "olmo-1b",
+                                  "internlm2-20b", "qwen3-32b", "llama4-maverick-400b-a17b",
+                                  "moonshot-v1-16b-a3b", "llama-3.2-vision-90b", "mamba2-1.3b",
+                                  "musicgen-medium"])
+def test_remesh_state_and_sharded_restore_on_the_card(nccl_mesh, tmp_path, arch, attn_impl):
+    """Every zoo arch's smoke params laid out by TRAIN_RULES on the
+    one-rank mesh (DTensors on cuda), written by the checkpointer and
+    restored into that template; then one sharded fp32 step under the
+    mesh equal, bitwise, to the unsharded step (the card's torch lacks
+    DTensor strategies the CPU's has: the hooks' pins cover them)."""
+    from repro_torch import pytree as P
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import AdamWConfig, Checkpointer, TrainConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.elastic import remesh_state
+
+    cfg = smoke_config(get_config(arch)).with_overrides(dtype=torch.float32)
+    layout = T.model_layout(cfg)
+    params = init_params(layout, seed=0, device="cuda")
+    dparams = remesh_state(params, layout, SH.TRAIN_RULES, nccl_mesh)
+    specs = SH.param_pspecs(layout, SH.TRAIN_RULES, nccl_mesh)
+    for d, p, s in zip(P.leaves(dparams), P.leaves(params), P.leaves(specs)):
+        assert SH.is_dtensor(d) and d.to_local().is_cuda and torch.equal(d.to_local(), p)
+        assert tuple(d.placements) == SH.placements(s, nccl_mesh)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(3, {"params": dparams}, blocking=True)
+    restored, step = ckpt.restore({"params": dparams})
+    assert step == 3 and all(
+        SH.is_dtensor(a) and a.placements == b.placements and torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(P.leaves(restored), P.leaves({"params": dparams})))
+
+    ocfg = AdamWConfig(learning_rate=1e-3, eps=1e-3, warmup_steps=1, total_steps=4)
+    tcfg = TrainConfig(num_microbatches=2, attn_impl=attn_impl, q_chunk=8, kv_chunk=8)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17)))
+    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    gen = _gen(5)
+    if cfg.embeds_input:
+        batch["embeds"] = torch.randn((4, 16, cfg.d_model), generator=gen, device="cuda")
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.randn((4, cfg.vision_tokens, cfg.d_model),
+                                             generator=gen, device="cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = make_train_step(cfg, tcfg, ocfg)(params, init_opt_state(params, ocfg), batch)
+        with SH.set_mesh(nccl_mesh):
+            sharded = make_train_step(cfg, tcfg, ocfg, param_pspecs=specs)(
+                dparams, init_opt_state(dparams, ocfg), batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    local = [x.to_local() if SH.is_dtensor(x) else x for x in P.leaves(sharded[:2])]
+    assert all(torch.equal(a, b) for a, b in zip(local, P.leaves(plain[:2])))
+    loss = sharded[2]["loss"]
+    assert torch.equal(loss.to_local() if SH.is_dtensor(loss) else loss, plain[2]["loss"])
+    assert K.LAUNCHES == {op: 0 for op in K.OPS}

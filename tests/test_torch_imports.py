@@ -38,6 +38,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.train.checkpoint", "repro_torch.train.fault",
             "repro_torch.train.compression", "repro_torch.data.pipeline",
             "repro_torch.core.pipeline", "repro_torch.launch.train"} <= set(mods)
+    assert {"repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+            "repro_torch.train.elastic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -59,9 +62,13 @@ def test_source_scan_finds_no_jax_or_repro_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_emit.py",
                                          ROOT / "scripts" / "profile_train.py",
                                          ROOT / "scripts" / "time_engine.py",
+                                         ROOT / "scripts" / "engine_tokens.py",
                                          *sorted((ROOT / "examples").glob("torch_*.py"))]
     assert len(files) > 15 and PKG / "models" / "ssm.py" in files
     assert PKG / "roofline" / "trace.py" in files
+    assert {PKG / "parallel" / "sharding.py", PKG / "parallel" / "collectives.py",
+            PKG / "launch" / "mesh.py", PKG / "launch" / "specs.py",
+            PKG / "launch" / "dryrun.py", PKG / "train" / "elastic.py"} <= set(files)
     assert {f.name for f in files} >= {"torch_quickstart.py", "torch_serve_lm.py",
                                        "torch_train_lm.py",
                                        "torch_polynomial_multiplication.py"}

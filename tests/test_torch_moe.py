@@ -5,7 +5,8 @@ package on the CPU.
 JAX side's routes and dispatch buffer read out of its own call (its
 ``lax.top_k`` and its first ``maybe_constrain``, wrapped while it is
 traced): the routes and the buffer (hence every kept assignment's rank
-and every ``keep``) are equal exactly, in fp32 and in bf16.  Then
+and every ``keep``) are equal exactly, in fp32 and in bf16; so are
+they with the dispatch blocked per data shard, as under a mesh.  Then
 ``forward`` (logits and aux), ``prefill_step`` and ``decode_step`` of
 the moonshot, maverick and jamba smoke configs.  The JAX side is
 compiled with XLA's excess precision off, so that bf16 is rounded at
@@ -184,6 +185,62 @@ def test_moe_apply_matches_jax(case, dtype):
         assert not (ids == 2).any(-1)[one].any()  # where one of the pair is in, it is 1
         for row in np.nonzero(both)[0]:
             assert list(ids[row]).index(1) < list(ids[row]).index(2)
+
+
+# name -> (case of CASES, the (data, model) mesh's shape): the dispatch
+# blocked per data shard, as under a mesh
+BLOCKED = {
+    "forced_drops-data2": ("forced_drops", (2, 2)),
+    "no_drops-data4": ("no_drops", (4, 1)),
+    "pad_rows_last-data8": ("pad_rows_last", (8, 1)),  # 12 tokens: halved to 4 blocks
+    "top1_shared-data2": ("top1_shared", (2, 2)),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(BLOCKED))
+def test_blocked_dispatch_matches_jax(name, dtype):
+    """Under a mesh the reference blocks the dispatch per data shard
+    (``_data_shards``, each block ranked and given capacity on its own);
+    the port does the same on plain tensors under an abstract mesh of
+    that shape.  The block count is the reference's (its ``_data_shards``
+    on a mesh of the same names and sizes), the capacity its buffer's,
+    each block's ranks the oracle's, y and aux the reference's."""
+    from types import SimpleNamespace
+
+    from repro_torch.parallel import sharding as SH
+
+    case, shape = BLOCKED[name]
+    arch, (b, s), capacity, extra = CASES[case]
+    jcfg, tcfg, jp, tp = _moe_setup(arch, dtype, extra)
+    jx, tx = _inputs(case, dtype, tcfg.d_model)
+    fake = SimpleNamespace(empty=False, axis_names=("data", "model"),
+                           shape=dict(zip(("data", "model"), shape)))
+    with mock.patch.object(JM.compat, "get_abstract_mesh", lambda: fake):
+        ds = JM._data_shards(b * s)
+    with mock.patch.object(JM, "_data_shards", lambda t: ds):
+        jy, jaux, jids, jbuf = jax_moe(jp, jx, jcfg.moe, capacity)
+    with SH.set_mesh(SH.AbstractMesh(shape, ("data", "model"))), M.record_routes() as routes:
+        assert M._data_shards(b * s) == ds
+        ty, taux = M.moe_apply(tp, tx, tcfg.moe, capacity=capacity)
+    (r,) = routes
+    assert jbuf.shape[0] == ds > 1 and r["capacity"] == jbuf.shape[2]
+    ids = r["expert_ids"].numpy()
+    np.testing.assert_array_equal(ids, np.asarray(jids))
+    want_rank = np.concatenate([_rank_oracle(blk) for blk in np.split(ids, ds)])
+    np.testing.assert_array_equal(r["rank"].numpy(), want_rank)
+    np.testing.assert_array_equal(r["keep"].numpy(), want_rank < r["capacity"])
+    got, want = _np(ty), _np(jy)
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, atol=FP32_ATOL, rtol=0)
+    else:
+        allowed = BF16_ULPS * bf16_ulp(np.abs(want).max(axis=-1, keepdims=True))
+        assert (np.abs(got - want) <= allowed).all(), np.abs(got - want).max()
+    for key in ("moe_lb_loss", "moe_z_loss", "moe_drop_fraction"):
+        np.testing.assert_allclose(float(taux[key]), float(jaux[key]), atol=AUX_ATOL, rtol=0)
+    if case == "forced_drops":  # a block's own capacity keeps more than one block's
+        _, unblocked = M.moe_apply(tp, tx, tcfg.moe, capacity=capacity)
+        assert float(taux["moe_drop_fraction"]) < float(unblocked["moe_drop_fraction"])
 
 
 def test_pad_rows_never_displace_real_assignments():

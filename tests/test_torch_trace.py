@@ -153,6 +153,27 @@ def test_launches_a_step_and_their_streams():
         TR.launches([r for r in records if r.name != TR.STEP_SPAN], "emit_*")
 
 
+def test_lost_launches_and_the_clock_lead():
+    """A launch call whose device record is missing is counted lost; a
+    graph launch's kernels carry its correlation id; a host callback
+    launches nothing.  A device time moved before its launch call shows
+    as the clock's lead."""
+    records = _steps()
+    assert TR.lost_launches(records) == 0
+    assert TR.clock_lead_us(records) == 0  # each kernel starts 1 us after its call ends
+    dropped = [r for r in records if not (r.where == "device" and r.corr == 102)]
+    assert TR.lost_launches(dropped) == 1
+    graph = [host("cudaGraphLaunch", 300, 301, kind="runtime", corr=500),
+             dev("gemm_kernel<64>", 302, 303, corr=500), dev("fill_kernel", 303, 304, corr=500)]
+    callback = [host("cudaLaunchHostFunc", 310, 311, kind="runtime", corr=501)]
+    assert TR.lost_launches(records + graph + callback) == 0
+    assert TR.lost_launches(records + graph[:1]) == 1
+    # the first kernel (its call at 10) stamped at 7
+    skewed = [r._replace(start=r.start - 5) if r.where == "device" and r.corr == 101 else r
+              for r in records]
+    assert TR.clock_lead_us(skewed) == pytest.approx(3)
+
+
 def _stages(emit_streams):
     """Four stage spans, each with a marker launch on its stream 30 + d,
     and emit launches on ``emit_streams``."""
