@@ -18,6 +18,9 @@
    heads over 8 KV heads, non-causal, both dtypes; the Sq 1 bf16 case is
    its entry's ``cross``) and a musicgen-medium chunk (24 heads of 64);
    decode attention musicgen's 24 x 64 MHA; RMSNorm d 1536 and 8192.
+   The emit also runs OLMo-1B's tied and Moonlight's untied head at B 128
+   and 256 in both dtypes: past the rows one launch holds, the batch is
+   tiled over launches (``emit_tiles``), each reading the head once.
 3. Engine phase: full-width OLMo-1B (random weights from a seed) served
    through ``Engine``: 12 ragged requests through 8 slots, once with
    ``attn_impl="dense"`` and once with ``"flash"``; the launch counters,
@@ -153,6 +156,18 @@
    leaf bitwise equal, with step p50 and peak memory; the plans for 512,
    256 and 128 devices; c, the dry run of every cell on both production
    mesh shapes (analytic counts, not card readings).  No kernel launches.
+
+13. ``launch/pipeline_demo`` on step 12's one-rank NCCL group, over a
+   one-rank ``pod`` mesh: a, ``ring_hop_future`` is the value itself and
+   issues no p2p, and a forced hop future returns to the host behind 50
+   ms of queued work; b, qwen3-32b at every published width cut to 4
+   layers (fp32, 3,506,223,104 parameters, random from seed 0), the
+   demo's train step on 16 x 512 tokens in 8 microbatches: 2 Lazy steps,
+   then 2 steps each across the pod axis under gpipe, interleaved (2
+   virtual stages) and one_f_one_b with the planned backward, losses and
+   every leaf bitwise the Lazy steps', with step p50 and peak memory; c,
+   ``pipeline_demo.main()``'s record of qwen3-32b x train_4k on the
+   2x16x16 mesh (analytic).  No kernel launches.
 
 Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
 11), twice: the two runs must give the same tokens (the sampling key is
@@ -381,6 +396,11 @@ EMIT_CASES = (
     ("rmsnorm", False, 2048, 1536, ("bfloat16",)),
 )
 MOONLIGHT_EMIT = ("rmsnorm", False, 163840, 2048)
+# Batches past one launch's rows (the emit tiles them over launches, each
+# reading the head once): OLMo-1B's tied head and Moonlight-16B-A3B's
+# untied head at B 128 and 256, in both dtypes
+EMIT_WIDE = (("layernorm_nonparam", True, 50304, 2048), ("rmsnorm", False, 163840, 2048))
+EMIT_WIDE_BATCHES = (128, 256)
 
 
 def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dict:
@@ -399,7 +419,11 @@ def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dic
     scale = (torch.randn((d,), generator=gen, device="cuda") * 0.2 + 1.0
              if norm == "rmsnorm" else None)
     kw = dict(norm=norm, scale=scale, eps=eps, tied=tied)
+    from repro_torch import kernels as K
+
+    before = K.LAUNCHES["emit_norm_logits"]
     got = kernel(x, w, **kw)
+    launches = K.LAUNCHES["emit_norm_logits"] - before
     want = plain(x, w, **kw)
     torch.cuda.synchronize()
     err, ok, worst = emit_errors(got, want, dtype)
@@ -419,6 +443,7 @@ def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dic
     lib_ms = device_ms([lambda h=h: library(h) for h in heads])
     bms, by = bound_ms(*emit_work(b, d, v, x.element_size(), scaled=scale is not None), dtype)
     print(f"emit_norm_logits {norm} tied={tied} B={b} d={d} V={v} {dtype}: "
+          f"{launches} launch{'es' if launches != 1 else ''} a call; "
           f"max_abs_err={err.max().item():.3e} max_rel_err={rel:.3e} "
           f"worst/allowed={worst:.3f} {'ok' if ok else 'FAILED'}; device kernel {ms:.4f} ms "
           f"(eager call {host_ms:.4f} ms), plain {plain_ms:.4f} ms, norm+matmul "
@@ -428,13 +453,13 @@ def emit_case(gen, norm, tied, v, d, dtype, kernel, plain, b=8, eps=1e-5) -> dic
         fail(f"emit_norm_logits {norm} tied={tied} V={v} d={d} {dtype} disagrees with its "
              f"plain version")
     return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, launches_per_call=launches)
 
 
 def run_emit(gen, results):
     import torch
 
-    from repro_torch.kernels.emit_norm_logits.ops import emit_norm_logits
+    from repro_torch.kernels.emit_norm_logits.ops import emit_norm_logits, emit_tiles
     from repro_torch.kernels.emit_norm_logits.ref import emit_norm_logits_ref
 
     main, untied = None, {}
@@ -446,7 +471,21 @@ def run_emit(gen, results):
                 main = row
             if (norm, tied, v, d) == MOONLIGHT_EMIT:
                 untied[name] = dict(row, kernel_over_library=row["ms"] / row["library_ms"])
-    results["emit_norm_logits"] = dict(main, untied=untied)
+    # past one launch's rows: tiled over launches, each reading the head
+    # once (the bound counts it once)
+    wide = {}
+    for norm, tied, v, d in EMIT_WIDE:
+        for b in EMIT_WIDE_BATCHES:
+            for name in ("bfloat16", "float32"):
+                dtype = getattr(torch, name)
+                row = emit_case(gen, norm, tied, v, d, dtype, emit_norm_logits,
+                                emit_norm_logits_ref, b=b)
+                want = len(emit_tiles(b, d, dtype, tied))
+                if row["launches_per_call"] != want:
+                    fail(f"emit B={b} tied={tied} {name}: {row['launches_per_call']} launches, "
+                         f"its tiling plan has {want}")
+                wide[f"{'tied' if tied else 'untied'} B{b} {name}"] = row
+    results["emit_norm_logits"] = dict(main, untied=untied, wide=wide)
 
 
 # Flash attention: outputs are convex combinations of order-1 values.
@@ -2985,7 +3024,7 @@ def run_mesh_phase(smi) -> None:
     """12. The mesh layer on a one-rank NCCL process group over ``cuda:0``
     and a (data 1, model 1) ``DeviceMesh``: a, the collectives; b, the
     elastic resume of full-width OLMo-1B from step 10c's checkpoint; c,
-    the dry run.  No kernel launches."""
+    the dry run; then step 13 on the same group.  No kernel launches."""
     import shutil
 
     import torch
@@ -3007,12 +3046,188 @@ def run_mesh_phase(smi) -> None:
         run_mesh_collectives(mesh, smi)
         run_elastic_resume(mesh, smi)
         run_dryrun_cells(smi)
+        free_card()
+        # 13. The pipelined demo step on the same group
+        run_pipeline_phase(smi)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     check_no_launches("mesh phase")
     free_card()
     print(f"mesh phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
+          f"launched 0 times", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 13. launch/pipeline_demo: the pipelined train step with its stages on the
+# ranks of a pod axis, on step 12's one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+PIPE_LAYERS = 4  # qwen3-32b cut from 64 layers, every published width kept
+PIPE_PARAMS = 3_506_223_104  # its model_layout at 4 layers
+PIPE_BATCH, PIPE_SEQ = 16, 512  # the demo's PIPE_SMALL batch, in 8 microbatches
+PIPE_STAGES = 2
+PIPE_STEPS = 2
+# (label, schedule, interleave, backward) of step 13b's pipelined runs
+PIPE_RUNS = (("gpipe", "gpipe", 1, "autodiff"), ("interleaved V2", "interleaved", 2, "autodiff"),
+             ("one_f_one_b planned", "one_f_one_b", 1, "planned"))
+
+
+def run_pipeline_hop(mesh, smi) -> None:
+    """13a. ``ring_hop_future`` over the one-rank ``pod`` axis: the hop is
+    the value itself and issues no p2p (torch's ``send`` refuses the
+    caller's own rank); a forced future behind 50 ms of queued device
+    work returns to the host at once (no host sync)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.future import ring_hop_future
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    x = torch.randn((2, PIPE_SEQ, 5120), generator=gen, device="cuda")
+    issued = []
+    saved = {name: getattr(dist, name) for name in ("batch_isend_irecv", "isend", "irecv")}
+    for name, fn in saved.items():
+        setattr(dist, name, lambda *a, _n=name, _f=fn, **k: issued.append(_n) or _f(*a, **k))
+    try:
+        same = ring_hop_future(x, "pod", mesh=mesh).force() is x
+        x * 2  # the multiply's kernel loaded before the timed call
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's 1.98 GHz
+        t = time.perf_counter()
+        y = ring_hop_future({"x": x}, "pod", mesh=mesh, tag=1).force()["x"] * 2
+        host_ms = (time.perf_counter() - t) * 1e3
+        ended = torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    if not same or issued or ended or host_ms > 25 or not torch.equal(y, x * 2):
+        fail(f"13a: the size-1 hop (same object {same}, p2p issued {issued}) or its forced "
+             f"future ({host_ms:.2f} ms on the host, card done: {ended}) is not the value")
+    print(f"13a ring_hop_future over pod (1 rank; {smi}): the value itself, no p2p issued; a "
+          f"forced hop future returned to the host in {host_ms:.3f} ms with 50 ms of device "
+          f"work still queued (no host sync)", flush=True)
+
+
+def run_pipeline_steps(mesh, smi) -> None:
+    """13b. qwen3-32b at every published width cut to 4 layers, fp32
+    (3,506,223,104 parameters, random from seed 0): the demo's train step
+    (``make_pipelined_loss``: embedding, ``pipeline_apply`` over ``pod``
+    in 2 stages, final norm, untied head, logsumexp loss, SGD at 1e-3) on
+    16 x 512 tokens in 8 microbatches, chunked attention, remat, under
+    deterministic algorithms: 2 steps of the Lazy evaluator, then 2 steps
+    each across the one-rank pod axis under gpipe, interleaved (2 virtual
+    stages) and one_f_one_b with the planned backward, every loss and
+    every leaf bitwise equal to the Lazy steps'.  Step p50 and peak memory
+    of each run; no kernel launches."""
+    import torch
+
+    from repro_torch import pytree as P
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.pipeline import local_stages
+    from repro_torch.launch import pipeline_demo as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+
+    cfg = get_config("qwen3-32b").with_overrides(num_layers=PIPE_LAYERS, dtype=torch.float32,
+                                                 kernels="plain")
+    layout = T.model_layout(cfg)
+    if param_count(layout) != PIPE_PARAMS:
+        fail(f"13b: qwen3-32b at {PIPE_LAYERS} layers has {param_count(layout)} parameters, "
+             f"not {PIPE_PARAMS}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+
+    def run(step, pcfg=None):
+        params = init_params(layout, seed=0, device="cuda")
+        params["blocks"] = PD.stage_params(params["blocks"], PIPE_STAGES)
+        if pcfg is not None:
+            params["blocks"] = local_stages(params["blocks"], pcfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(PIPE_STEPS):
+            t = time.perf_counter()
+            params, loss = step(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss)
+        return params, losses, times, torch.cuda.max_memory_allocated()
+
+    def report(label, losses, times, peak, extra=""):
+        print(f"13b {label} ({smi}): losses {[float(x) for x in losses]}; step p50 "
+              f"{statistics.median(times) * 1e3:.1f} ms ({[round(x * 1e3, 1) for x in times]} "
+              f"ms, the first a new step function's first call; host clock, synchronised; "
+              f"deterministic algorithms on); peak memory {peak / 1e9:.2f} GB{extra}", flush=True)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        tcfg = PD._train_config()
+        params, ref_losses, times, peak = run(
+            PD.make_pipelined_loss(cfg, mesh, tcfg, PIPE_STAGES, lazy=True))
+        ref = [t.cpu() for t in P.leaves(params)]
+        del params
+        report(f"Lazy {cfg.name} {PIPE_LAYERS} layers", ref_losses, times, peak)
+        if not all(torch.isfinite(x) for x in ref_losses):
+            fail(f"13b: the Lazy losses are not finite: {[float(x) for x in ref_losses]}")
+        for label, schedule, interleave, backward in PIPE_RUNS:
+            tcfg = PD._train_config(pipeline_schedule=schedule, pipeline_interleave=interleave,
+                                    pipeline_backward=backward)
+            params, losses, times, peak = run(
+                PD.make_pipelined_loss(cfg, mesh, tcfg, PIPE_STAGES),
+                tcfg.pipeline_config(PIPE_STAGES))
+            leaves = P.leaves(params)
+            same = [torch.equal(a.cpu(), b) for a, b in zip(leaves, ref)]
+            del params, leaves
+            if len(same) != len(ref) or not all(same) or not all(
+                    torch.equal(a, b) for a, b in zip(losses, ref_losses)):
+                fail(f"13b {label}: {same.count(False)}/{len(same)} leaves or the losses "
+                     f"{[float(x) for x in losses]} differ from the Lazy steps' "
+                     f"{[float(x) for x in ref_losses]}")
+            report(f"across pod (1 rank) {label}", losses, times, peak,
+                   f"; losses and all {len(same)} leaves bitwise equal to the Lazy steps'")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check_no_launches("13b pipelined steps")
+
+
+def run_pipeline_record(smi) -> None:
+    """13c. ``pipeline_demo.main()``: the record of qwen3-32b x train_4k
+    on the 2x16x16 mesh with the stages over pod, analytically."""
+    from repro_torch.launch import pipeline_demo as PD
+
+    rec = PD.main()
+    if (rec["compile_seconds"] is not None or rec["memory_analysis"]["temp_size_gib"] is not None
+            or any(v is not None for v in rec["hlo_analysis"].values())
+            or not rec["analytic_flops"] > 0):
+        fail(f"13c: the pipeline record's XLA-only fields are not null, or it has no FLOPs: {rec}")
+    print(f"13c pipeline_demo record: {rec['cell']}, {rec['mode']}; arguments "
+          f"{rec['memory_analysis']['argument_size_gib']:.3f} GiB per chip, "
+          f"{rec['analytic_flops']:.4e} FLOPs a step (analytic counts on the reference's "
+          f"512-chip mesh shape, not readings taken on any chip)", flush=True)
+
+
+def run_pipeline_phase(smi) -> None:
+    """13. On step 12's one-rank NCCL group, a one-rank ``pod`` mesh: a,
+    the hop; b, the pipelined demo step at full width; c, the record.
+    One H100 holds one NCCL rank, so no hop crosses ranks here (four gloo
+    ranks check that on the CPU, tests/test_torch_pipeline_demo.py)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_mesh
+
+    started = time.perf_counter()
+    K.reset_launches()
+    mesh = make_mesh((1,), ("pod",))
+    run_pipeline_hop(mesh, smi)
+    run_pipeline_steps(mesh, smi)
+    free_card()
+    run_pipeline_record(smi)
+    print(f"13 pipeline phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
           f"launched 0 times", flush=True)
 
 
@@ -3246,7 +3461,9 @@ def run_trace_stream_round(cfg, params, smi) -> None:
 def run_trace_train_step(step_fn, params, opt, batch, smi):
     """11e. One step of the train loop timed, the next profiled (no
     shapes): its idle share and top kernels; none of the five kernels
-    launches.  Returns the new params and optimizer state."""
+    launches.  A trace that lost device records is taken once more; the
+    second must be complete.  Returns the new params and optimizer
+    state."""
     import torch
 
     from repro_torch import kernels as K
@@ -3266,6 +3483,14 @@ def run_trace_train_step(step_fn, params, opt, batch, smi):
     unprofiled = time.perf_counter() - t
     K.reset_launches()
     records = TR.profile_steps(step, 1, shapes=False)
+    lost = TR.lost_launches(records)
+    if lost:
+        # a trace with dropped device records counts nothing: the step (its
+        # ~38,000 kernels the most of any traced window) is profiled once
+        # more, and that trace too must be complete
+        print(f"  11e train step: the profiler lost {lost} launch records; one more step "
+              f"profiled", flush=True)
+        records = TR.profile_steps(step, 1, shapes=False)
     check_trace_launches("11e train step", records, {
         p: (0, K.LAUNCHES[key]) for p, key in (
             ("decode_attention_kernel", "decode_attention"), ("emit_*", "emit_norm_logits"),
@@ -3417,7 +3642,8 @@ def main() -> int:
     run_training(smi)
 
     # 12. The mesh layer on a one-rank NCCL group: collectives, the
-    # elastic resume of step 10c's checkpoint, the dry run
+    # elastic resume of step 10c's checkpoint, the dry run; 13, on the
+    # same group, the pipelined demo step
     run_mesh_phase(smi)
 
     source = {

@@ -404,6 +404,20 @@ class ChunkPolicy:
         return ChunkPolicy(num_chunks, axis_len // num_chunks)
 
 
+def _replicated_on(x, dims):
+    """``x`` with any DTensor placement that shards one of ``dims``
+    replaced by a replica (exact data movement); other tensors as they
+    are."""
+    from repro_torch.parallel.sharding import is_dtensor
+
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in dims else p for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
 def chunk_axis(tree, num_chunks: int, axis: int = 0):
     """Reshape leading `axis` of every leaf into (num_chunks, chunk, ...)."""
 
@@ -426,11 +440,14 @@ def chunk_axis(tree, num_chunks: int, axis: int = 0):
 
 
 def unchunk_axis(tree, axis: int = 0):
-    """Inverse of :func:`chunk_axis`."""
+    """Inverse of :func:`chunk_axis`.  A DTensor sharded on either of the
+    two dims merged is replicated on it first: the merged dim's shards
+    would interleave, and DTensor (torch 2.11) refuses that view."""
 
     def _unchunk(x):
         if axis != 0:
             x = x.movedim(0, axis)
+        x = _replicated_on(x, (axis, axis + 1))
         new_shape = tuple(x.shape[:axis]) + (-1,) + tuple(x.shape[axis + 2 :])
         return x.reshape(new_shape)
 

@@ -33,6 +33,10 @@ card really has:
    no host sync, as for the stream futures; on gloo it blocks the host.
    The future holds the collective's input and output tensors until it
    is forced.
+   :func:`ring_hop_future` is the ring hop across ranks: each rank's
+   value goes to the next rank of a mesh axis (``isend``/``irecv``),
+   the reference's ``ppermute`` over a mesh axis; differentiated, the
+   cotangent goes back along the reverse ring.
 4. **Host futures** (:class:`HostFuture`): a thin wrapper over
    ``concurrent.futures`` for host work (data prefetch, checkpoint
    writes).
@@ -96,6 +100,7 @@ class Future:
     _stream: torch.cuda.Stream | None = None
     _works: list | None = None
     _held: PyTree = None
+    _hop: "_Hop | None" = None
 
     def map(self, f: Callable[[PyTree], PyTree]) -> "Future":
         """The Lazy/Future monad's ``map`` — forwards the asynchrony: ``f``
@@ -137,7 +142,9 @@ class Future:
         if self._works:
             for work in self._works:
                 work.wait()
-            self._works, self._held = None, None
+            if self._hop is not None:
+                self._value = self._land_hop()
+            self._works, self._held, self._hop = None, None, None
         if self._event is not None and not self._forced:
             current = torch.cuda.current_stream(self._stream.device)
             current.wait_event(self._event)
@@ -145,6 +152,15 @@ class Future:
                 t.record_stream(current)
         self._forced = True
         return self._value
+
+    def _land_hop(self) -> PyTree:
+        """A ring hop's received buffers as the value: linked to the sent
+        leaves where autograd records, laid out as the sent leaves are."""
+        flat, treedef = self._held
+        bufs = self._value
+        if torch.is_grad_enabled() and any(t.requires_grad for t in self._hop.sent):
+            bufs = list(_RingHop.apply(self._hop, *bufs, *self._hop.sent))
+        return P.unflatten(treedef, [like_local(b, leaf) for b, leaf in zip(bufs, flat)])
 
 
 def defer(f: Callable[..., PyTree], *args, stream: torch.cuda.Stream | None = None,
@@ -194,6 +210,150 @@ def axis_group(axis_name: str, mesh=None):
     if mesh is None:
         raise ValueError(f"no mesh for axis {axis_name!r}: pass mesh= or use set_mesh")
     return mesh.get_group(axis_name)
+
+
+# Leaves a hop may carry: the leaf index is the low bits of its tag.
+_LEAF_BITS = 10
+
+
+def hop_tag(tag: int, leaf: int, backward: bool = False) -> int:
+    """The p2p tag of leaf ``leaf`` of hop ``tag``, in one direction: gloo
+    matches a receive to a send by (peer, tag); NCCL ignores tags and
+    matches by the order of issue, so every rank issues its hops in one
+    order that both ends of each pair share."""
+    if leaf >= 1 << _LEAF_BITS:
+        raise ValueError(f"a hop carries at most {1 << _LEAF_BITS} leaves")
+    return ((2 * tag + int(backward)) << _LEAF_BITS) | leaf
+
+
+def p2p(sends, recvs, group) -> list:
+    """Issue ``sends`` ``[(tensor, peer, tag)]`` and ``recvs`` ``[(buffer,
+    peer, tag)]`` (peers are global ranks) as one batch over ``group``
+    (one NCCL group call, so that two ranks sending to each other do not
+    wait on each other); returns the works, [] for no message: one a
+    message on gloo, one for the whole batch on NCCL, so a receive is
+    complete only once every work of its batch is."""
+    import torch.distributed as dist
+
+    ops = ([dist.P2POp(dist.isend, t, peer, group, tag) for t, peer, tag in sends]
+           + [dist.P2POp(dist.irecv, t, peer, group, tag) for t, peer, tag in recvs])
+    return dist.batch_isend_irecv(ops) if ops else []
+
+
+class P2PBatch:
+    """The works of one :func:`p2p` batch, waited on once however many
+    futures share it (waiting twice on a gloo p2p work blocks: it waits
+    for another message)."""
+
+    def __init__(self, works: list):
+        self._works = works
+
+    def wait(self) -> None:
+        for work in self._works:
+            work.wait()
+        self._works = []
+
+
+def ring_peers(group, reverse: bool = False) -> tuple[int, int, int, int]:
+    """``(size, index, next, previous)`` on ``group``'s ring: the axis
+    size, this rank's index on it, and the global ranks one step along
+    the ring and one step back (``reverse`` swaps the direction)."""
+    import torch.distributed as dist
+
+    size, idx = dist.get_world_size(group), dist.get_rank(group)
+    step = -1 if reverse else 1
+    return (size, idx, dist.get_global_rank(group, (idx + step) % size),
+            dist.get_global_rank(group, (idx - step) % size))
+
+
+def to_local(x) -> torch.Tensor:
+    """A DTensor's local shard (autograd-aware), else ``x``."""
+    from repro_torch.parallel.sharding import is_dtensor
+
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like_local(local: torch.Tensor, like):
+    """``local`` laid out as the DTensor ``like`` is (its shard on this
+    rank; autograd-aware), else ``local``."""
+    from repro_torch.parallel.sharding import is_dtensor
+
+    if not is_dtensor(like):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+@dataclasses.dataclass
+class _Hop:
+    """What the backward of a forced :func:`ring_hop_future` needs: the
+    ring's group and ends, the tag, and the local tensors sent."""
+
+    group: Any
+    to: int
+    frm: int
+    tag: int
+    sent: list
+
+
+class _RingHop(torch.autograd.Function):
+    """The received leaves, linked to the sent ones: the backward sends
+    the received leaves' cotangent back to the rank they came from and
+    receives the sent leaves' cotangent from the rank they went to (the
+    transpose of a ring ``ppermute`` is the reverse ring)."""
+
+    @staticmethod
+    def forward(ctx, hop: _Hop, *leaves):
+        ctx.hop = hop
+        return tuple(r.clone() for r in leaves[: len(hop.sent)])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        hop = ctx.hop
+        bufs = [torch.empty_like(t) for t in hop.sent]
+        works = p2p([(g.contiguous(), hop.frm, hop_tag(hop.tag, i, True))
+                     for i, g in enumerate(grads)],
+                    [(b, hop.to, hop_tag(hop.tag, i, True)) for i, b in enumerate(bufs)],
+                    hop.group)
+        for w in works:
+            w.wait()
+        return (None, *[None] * len(grads), *bufs)
+
+
+def ring_hop_future(x: PyTree, axis_name: str, *, mesh=None, reverse: bool = False,
+                    tag: int = 0) -> Future:
+    """The ring hop across the ranks of a mesh axis, issued now and forced
+    where the value is used: every rank's ``x`` goes to the next rank of
+    the axis (the previous one with ``reverse``), and the future's value
+    is what the previous rank sent -- the reference's ``ppermute`` over
+    a mesh axis.  Each leaf's local shard travels (a DTensor's shard on
+    this rank goes to the same ``(data, model)`` coordinate of the next
+    rank, and is laid out there as ``x``'s leaf is here).  ``tag`` tells
+    concurrent hops apart on gloo; NCCL matches them by order, so ranks
+    that issue several must issue them in one order.
+
+    ``force()`` waits on the works (on NCCL an ordering of the caller's
+    stream; on gloo the host waits).  Forced under autograd, the value is
+    linked to ``x``: differentiating through it sends the cotangent back
+    along the reverse ring and receives ``x``'s from the next rank, so
+    the backward is a collective of the axis too: every rank must
+    differentiate through the value it forced.  On an axis of size 1 the
+    hop is the value itself and no p2p is issued (torch's ``send``
+    refuses the caller's own rank, and NCCL two ranks on one GPU)."""
+    group = axis_group(axis_name, mesh)
+    size, _, to, frm = ring_peers(group, reverse)
+    if size == 1:
+        return Future(x)
+    flat, treedef = P.flatten(x)
+    sent = [to_local(leaf).contiguous() for leaf in flat]
+    bufs = [torch.empty_like(t) for t in sent]
+    works = p2p([(t, to, hop_tag(tag, i)) for i, t in enumerate(sent)],
+                [(b, frm, hop_tag(tag, i)) for i, b in enumerate(bufs)], group)
+    return Future(bufs, False, _works=works, _held=(flat, treedef),
+                  _hop=_Hop(group, to, frm, tag, sent))
 
 
 def _collective_future(x: PyTree, issue: Callable) -> Future:

@@ -20,14 +20,20 @@ the backward is the combined plan's B units, replayed on the same stage
 streams (bitwise-equal gradients; group-level recomputation is
 inherent).
 
-The reference's ``mesh`` argument is ``stages`` here: ``None`` runs the
-Lazy evaluator, ``D`` the Future evaluator on D stage streams, as the
-port's ``StreamEngine`` does.
+Two placements of the stages: ``stages=D`` runs the Future evaluator on
+D stage streams of one device, as the port's ``StreamEngine`` does;
+``mesh=`` (a ``DeviceMesh``, the reference's argument) runs it across
+the ranks of the mesh axis ``config.axis_name``, each rank holding only
+its own stages (its virtual stages ``v*D + d`` back to back, see
+:func:`local_stages`) and the hops crossing ranks by p2p.  With neither,
+the Lazy evaluator runs.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import torch
 
 from repro_torch import pytree as P
 from repro_torch.core import chunking
@@ -96,13 +102,14 @@ class PipelineConfig:
 
 
 def pipeline_evaluator(
-    config: PipelineConfig, stages: int | None = None, **kwargs
+    config: PipelineConfig, stages: int | None = None, mesh=None, **kwargs
 ) -> LazyEvaluator | FutureEvaluator:
     """The evaluator :func:`pipeline_apply` runs: Lazy for ``stages``
-    None (or one stage), else the Future evaluator on ``stages`` stage
-    streams under the config's schedule and backward (``kwargs``, e.g.
-    ``time_units=True``, go to it)."""
-    if stages is None or config.num_stages == 1:
+    and ``mesh`` None (or one stage), else the Future evaluator on
+    ``stages`` stage streams, or across the ranks of ``mesh``'s axis
+    ``config.axis_name``, under the config's schedule and backward
+    (``kwargs``, e.g. ``time_units=True``, go to it)."""
+    if (stages is None and mesh is None) or config.num_stages == 1:
         return LazyEvaluator()
     return FutureEvaluator(
         stages,
@@ -110,6 +117,7 @@ def pipeline_evaluator(
         schedule=config.schedule,
         interleave=config.interleave,
         backward=config.backward,
+        mesh=mesh,
         **kwargs,
     )
 
@@ -121,6 +129,7 @@ def pipeline_apply(
     config: PipelineConfig,
     stages: int | None = None,
     evaluator: LazyEvaluator | FutureEvaluator | None = None,
+    mesh=None,
 ) -> PyTree:
     """Run ``x`` through ``num_stages`` stages of ``stage_fn``.
 
@@ -128,26 +137,48 @@ def pipeline_apply(
     leaves have leading axis global-batch, chunked into
     ``num_microbatches`` items.  With ``stages`` given, the stages are
     pipelined over that many stage streams under ``config.schedule``
-    (Future); otherwise evaluated sequentially (Lazy).  Results are
-    identical for every schedule and backward.  ``evaluator`` (one
+    (Future); with ``mesh`` given, over the ranks of its axis
+    ``config.axis_name``, and ``stage_params`` are then this rank's
+    stages only (leading axis ``num_stages / D``, :func:`local_stages`);
+    otherwise evaluated sequentially (Lazy).  Results are identical for
+    every schedule and backward, on every rank.  ``evaluator`` (one
     :func:`pipeline_evaluator` made, to read its unit times) replaces
-    the one ``stages`` names.
+    the one ``stages`` and ``mesh`` name.
 
     Routed through the StreamGraph IR: the stage stack is one algebra
     segment, so model code composes with ``map``/``zip``-built streams.
     """
     items = chunking.chunk_axis(x, config.num_microbatches)
+    if evaluator is None:
+        evaluator = pipeline_evaluator(config, stages, mesh)
+    ranked = getattr(evaluator, "mesh", None) is not None
     stream = Stream.source(items).through(
         lambda params, xb: (params, stage_fn(params, xb)),
         stage_params,
-        num_cells=config.num_stages,
+        num_cells=config.num_stages // evaluator.num_stages if ranked else config.num_stages,
         mutable_state=False,
         remat=config.remat,
     )
-    if evaluator is None:
-        evaluator = pipeline_evaluator(config, stages)
     out = stream.collect(evaluator).items
     return chunking.unchunk_axis(out)
+
+
+def local_stages(stage_params: PyTree, config: PipelineConfig, mesh) -> PyTree:
+    """This rank's stages of ``stage_params`` (leading axis
+    ``num_stages``) for :func:`pipeline_apply` across ``mesh``'s axis
+    ``config.axis_name``: rank d's virtual stages ``v*D + d``, ``v <
+    interleave``, back to back (for ``interleave`` 1, its contiguous
+    share of the stage axis)."""
+    from repro_torch.parallel.sharding import mesh_axes
+
+    d_, v_ = mesh_axes(mesh)[config.axis_name], config.interleave
+    d = mesh.get_local_rank(config.axis_name)
+    if config.num_stages % (d_ * v_):
+        raise ValueError(f"num_stages={config.num_stages} does not split over {d_} ranks x "
+                         f"interleave {v_}")
+    c = config.num_stages // (d_ * v_)  # stages a virtual stage
+    cuts = [((v * d_ + d) * c, (v * d_ + d + 1) * c) for v in range(v_)]
+    return P.tree_map(lambda t: torch.cat([t[a:b] for a, b in cuts]), stage_params)
 
 
 def split_stages(layer_params: PyTree, num_layers: int, num_stages: int) -> PyTree:

@@ -65,7 +65,18 @@ import torch
 from repro_torch import pytree as P
 from repro_torch import resolve_device
 from repro_torch.core import graph as G
-from repro_torch.core.future import ppermute_future, stage_stream
+from repro_torch.core.future import (
+    Future,
+    P2PBatch,
+    axis_group,
+    hop_tag,
+    like_local,
+    p2p,
+    ppermute_future,
+    ring_peers,
+    stage_stream,
+    to_local,
+)
 from repro_torch.core.graph import Stream, StreamResult
 from repro_torch.core.schedules import (
     SchedulePlan,
@@ -278,22 +289,41 @@ class FutureEvaluator:
     :meth:`_run_chain_planned`); its gradients are bitwise those of
     ``"autodiff"``.  ``time_units=True`` records a pair of timing events
     around every unit on its stage's stream (:meth:`unit_times`).
+
+    **Across ranks** (``mesh=``, a ``DeviceMesh``): the stages are the
+    ranks of the mesh axis ``axis_name``, as in the reference, and D is
+    its size.  Every rank builds the same plan and runs only its own
+    virtual stages ``v * D + d``; the chain's state is this rank's cells
+    (its V groups back to back, the reference's device-major layout),
+    and a unit's output crosses to the next rank by p2p (see
+    :meth:`_run_chain_ranked`).  Every rank holds the source items, and
+    every rank gets the outputs (broadcast from the last rank).
     """
 
     name = "future"
 
     def __init__(
         self,
-        num_stages: int,
+        num_stages: int | None = None,
         axis_name: str = "pod",
         schedule: str = "gpipe",
         interleave: int = 1,
         backward: str = "autodiff",
         device: str | torch.device | None = None,
         time_units: bool = False,
+        mesh=None,
     ):
-        if num_stages < 1:
-            raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+        if mesh is not None:
+            from repro_torch.parallel.sharding import mesh_axes
+
+            size = mesh_axes(mesh)[axis_name]
+            if num_stages not in (None, size):
+                raise ValueError(f"num_stages={num_stages}, but axis {axis_name!r} of the "
+                                 f"mesh has {size} ranks")
+            num_stages = size
+        if num_stages is None or num_stages < 1:
+            raise ValueError(f"num_stages must be >= 1 (or give a mesh), got {num_stages}")
+        self.mesh = mesh
         if schedule != "interleaved" and interleave != 1:
             raise ValueError(f"{schedule=} requires interleave=1, got {interleave}")
         self.backward = validate_backward(backward)
@@ -349,6 +379,8 @@ class FutureEvaluator:
     # -- chain execution ---------------------------------------------------
 
     def _execute(self, chain: G.ChainProgram) -> tuple[tuple, PyTree]:
+        if self.mesh is not None:
+            return self._run_chain_ranked(chain)
         if self.backward == "planned":
             return self._run_chain_planned(chain)
         return self._run_chain(chain)
@@ -634,6 +666,391 @@ class FutureEvaluator:
         if chain.finalize is not None:
             outs = G.apply_per_item(chain.finalize, outs)
         return split_states(init_state), outs
+
+
+    # -- across the ranks of a mesh axis -----------------------------------
+
+    def _run_chain_ranked(self, chain: G.ChainProgram) -> tuple[tuple, PyTree]:
+        """The pipeline with its stages on the ranks of the mesh axis.
+
+        Rank d runs the plan's units of its virtual stages on its own
+        device, in tick order, and hands each output to rank d+1 (the
+        last rank's outputs of virtual stage ``v*D + D-1`` to rank 0
+        under ``interleave > 1``).  At each tick a rank issues, as one
+        batch (:func:`~repro_torch.core.future.p2p`), the send of what
+        it made and the receive of what rank d-1 made at the same tick
+        -- which every rank reads off the shared plan -- so the two ends
+        of every pair issue their messages in one order, as NCCL needs
+        (it matches by order; gloo by the tags, one for each
+        ``(virtual stage, item, direction)``).  A received value is
+        forced at the tick that consumes it, two or more ticks later (the
+        plan's hand-off of 2).  A hop carries each leaf's local shard,
+        laid out as the source item's leaf is (a DTensor unit output is
+        redistributed to that layout first, inside the unit's graph).
+        On an axis of size 1 a hop is the value itself.
+
+        The outputs of the last virtual stage are broadcast from the last
+        rank, so every rank returns them.  The backward is one autograd
+        node over the whole run (:class:`_Ranked`): its B units run in
+        tick order, never in the autograd engine's, each cotangent
+        crossing to rank d-1 in the same per-tick batches -- under
+        ``"autodiff"`` the forward plan's units in reverse tick order on
+        the graphs the forward recorded, under ``"planned"``
+        :func:`~repro_torch.core.schedules.build_backward_plan`'s units
+        recomputed from the stashed inputs.  Weight gradients are summed
+        per virtual stage with the item descending, as on one device, so
+        both are bitwise the Lazy evaluator's.  The ranks compute the same
+        function of the broadcast outputs (a loss replicated over the
+        axis): the last rank's cotangent of the outputs seeds the
+        backward, and the source items' gradient is broadcast from rank
+        0, which runs virtual stage 0.
+
+        One source, immutable cell state without ``const_state``, no
+        feedback: the training shape of :func:`~repro_torch.core.
+        pipeline.pipeline_apply`.
+        """
+        if chain.feedback is not None or len(chain.injections) != 1:
+            raise ValueError(
+                "a FutureEvaluator across ranks runs single-source chains without feedback "
+                "(the training shape: one stream of microbatches)"
+            )
+        machinery = G._chain_cell_machinery(chain)
+        _, init_state, const_state, mutable, split_states = machinery
+        if mutable or const_state is not None:
+            raise ValueError(
+                "a FutureEvaluator across ranks needs immutable cell state "
+                "(mutable_state=False) without const_state: each rank holds its own stages"
+            )
+        if chain.num_cells == 0 or chain.num_cells % self.interleave:
+            raise ValueError(
+                f"this rank's num_cells={chain.num_cells} must be a positive multiple of "
+                f"interleave {self.interleave} (its {self.interleave} virtual stages)"
+            )
+        src = chain.injections[0].materialize()
+        G.leading_axis_size(src, "items")
+        run = _RankRun(self, chain, machinery, src)
+        s_leaves = P.leaves(init_state)
+        x_leaves = P.leaves(src)
+        if torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in s_leaves + x_leaves):
+            outs = P.unflatten(run.out_def, _Ranked.apply(run, *s_leaves, *x_leaves))
+        else:
+            outs = P.unflatten(run.out_def, run.forward())
+        if chain.finalize is not None:
+            outs = G.apply_per_item(chain.finalize, outs)
+        return split_states(init_state), outs
+
+
+class _RankRun:
+    """One run of the pipeline across ranks (:meth:`FutureEvaluator.
+    _run_chain_ranked`): this rank's units, the hops, and what the
+    backward needs from the forward."""
+
+    def __init__(self, ev: FutureEvaluator, chain: G.ChainProgram, machinery, src):
+        self.ev, self.src = ev, src
+        self.d_, self.v_, self.m_ = ev.num_stages, ev.interleave, chain.num_items
+        self.per_group = chain.num_cells // self.v_
+        self.cell_fn, self.init_state = machinery[0], machinery[1]
+        self.group = axis_group(ev.axis_name, ev.mesh)
+        _, self.rank, self.next, self.prev = ring_peers(self.group)
+        self.plan = ev.plan_for(self.m_)
+        self.template, self.out_def = P.flatten(P.tree_map(lambda x: x[0], src))
+        self.s_leaves, self.s_def = P.flatten(self.init_state)
+        self.x_leaves, self.x_def = P.flatten(src)
+        self.units: dict = {}  # (p, m) -> what the unit's backward reads
+        self.sends: list = []  # the batches in flight and the tensors they send
+
+    # -- hops --------------------------------------------------------------
+
+    def _layout(self, tree) -> PyTree:
+        """``tree``'s leaves laid out as the source item's (a DTensor
+        redistributed to the item leaf's placements, a partial sum
+        reduced; autograd-aware)."""
+        from repro_torch.parallel.sharding import is_dtensor
+
+        leaves = P.leaves(tree)
+        if len(leaves) != len(self.template):
+            raise ValueError("a unit's output must have the source item's structure")
+        return P.unflatten(self.out_def, [
+            x.redistribute(t.device_mesh, t.placements)
+            if is_dtensor(x) and tuple(x.placements) != tuple(t.placements) else x
+            for x, t in zip(leaves, self.template)])
+
+    def _received(self, bufs: list) -> PyTree:
+        return P.unflatten(self.out_def, [like_local(b, t) for b, t in zip(bufs, self.template)])
+
+    def _hop(self, sends, recvs, got: dict, backward: bool) -> None:
+        """One tick's batch: ``sends`` ``[(key, value)]`` to the next
+        rank (the previous one ``backward``), ``recvs`` ``[key]`` from
+        the other side, each received value a :class:`Future` in
+        ``got[key]``; a key is the ``(virtual stage, item)`` of the unit
+        that reads the value.  On an axis of size 1 a sent value is
+        received at once."""
+        if self.d_ == 1:
+            for key, value in sends:
+                got[key] = Future(value)
+            return
+        to, frm = (self.prev, self.next) if backward else (self.next, self.prev)
+        ops, held = [], []
+        for (p, m), value in sends:
+            locs = [to_local(x).detach().contiguous() for x in P.leaves(self._layout(value))]
+            held += locs
+            ops += [(t, to, hop_tag(p * self.m_ + m, i, backward)) for i, t in enumerate(locs)]
+        bufs = {key: [torch.empty_like(to_local(t)) for t in self.template] for key in recvs}
+        rops = [(b, frm, hop_tag(p * self.m_ + m, i, backward))
+                for (p, m) in recvs for i, b in enumerate(bufs[p, m])]
+        # NCCL coalesces a batch into one work (gloo gives one an op), so a
+        # value received waits on the whole batch
+        batch = P2PBatch(p2p(ops, rops, self.group))
+        self.sends.append((batch, held))
+        for key in recvs:
+            got[key] = Future(self._received(bufs[key]), False, _works=[batch])
+
+    def _drain(self) -> None:
+        """Wait on every batch in flight (a rank that timed out raises)."""
+        for batch, _ in self.sends:
+            batch.wait()
+        self.sends = []
+
+    def _broadcast(self, values: list, owner: int) -> list:
+        """Every item of ``values`` (given on axis index ``owner``, None
+        elsewhere) on every rank, laid out as the source item."""
+        import torch.distributed as dist
+
+        if self.d_ == 1:
+            return values
+        src = dist.get_global_rank(self.group, owner)
+        out = []
+        for value in values:
+            if self.rank == owner:
+                value = self._layout(value)
+                locs = [to_local(x).detach().contiguous() for x in P.leaves(value)]
+            else:
+                locs = [torch.empty_like(to_local(t)) for t in self.template]
+            for t in locs:
+                dist.broadcast(t, src=src, group=self.group)
+            out.append(value if self.rank == owner else self._received(locs))
+        return out
+
+    # -- forward -------------------------------------------------------------
+
+    def _rows(self, v: int, grad: list[bool]) -> list:
+        """Virtual stage ``v``'s state rows, as leaves of their own where
+        ``grad`` asks for their gradient."""
+        a, b = v * self.per_group, (v + 1) * self.per_group
+        return [leaf[a:b].detach().requires_grad_(True) if g else leaf[a:b]
+                for leaf, g in zip(self.s_leaves, grad)]
+
+    def _apply(self, m: int, inp, rows) -> PyTree:
+        out, _ = G.scan_cells(self.cell_fn, False, inp, None,
+                              P.unflatten(self.s_def, rows), item=m)
+        return self._layout(out)
+
+    def _join(self) -> None:
+        """One collective over the axis before the run's first p2p batch:
+        NCCL needs every rank of a group in the group's first call, and a
+        tick's batch holds only the ranks that send or receive then."""
+        import torch.distributed as dist
+
+        if self.d_ > 1:
+            dist.all_reduce(torch.zeros(1, device=to_local(self.template[0]).device),
+                            group=self.group)
+
+    def forward(self, record: str | None = None) -> list:
+        """The F units in tick order; returns the outputs' leaves (every
+        item of the last virtual stage, broadcast).  ``record``:
+        ``"graph"`` keeps each unit's graph, ``"stash"`` its input."""
+        self._join()
+        d, d_, plan = self.rank, self.d_, self.plan
+        last = d_ * self.v_ - 1
+        want_w = [t.requires_grad and t.is_floating_point() for t in self.s_leaves]
+        want_x = any(t.requires_grad for t in self.x_leaves)
+        got: dict = {}
+        outs: list = [None] * self.m_
+        for t in range(plan.num_ticks):
+            sends, recvs = [], []
+            m = int(plan.microbatch[t, d])
+            if m >= 0:
+                v = int(plan.group[t, d])
+                p = v * d_ + d
+                inp = (P.tree_map(lambda x: x[m], self.src) if p == 0
+                       else got.pop((p, m)).force())
+                if record == "graph":
+                    rows = self._rows(v, want_w)
+                    xs = [x.detach().requires_grad_(p > 0 or want_x) for x in P.leaves(inp)]
+                    with torch.enable_grad():
+                        out = self._apply(m, P.unflatten(self.x_def, xs), rows)
+                    self.units[p, m] = (out, rows, xs)
+                    out = P.tree_map(lambda x: x.detach(), out)
+                else:
+                    if record == "stash":
+                        self.units[p, m] = inp
+                    out = self._apply(m, inp, self._rows(v, [False] * len(want_w)))
+                if p == last:
+                    outs[m] = out
+                else:
+                    sends.append(((p + 1, m), out))
+            # what rank d-1 makes at this tick for a unit of this rank
+            dp = (d - 1) % d_
+            mp = int(plan.microbatch[t, dp])
+            if mp >= 0 and int(plan.group[t, dp]) * d_ + dp < last:
+                recvs.append((int(plan.group[t, dp]) * d_ + dp + 1, mp))
+            self._hop(sends, recvs, got, backward=False)
+        self._drain()
+        owner = last % d_
+        outs = self._broadcast(outs if d == owner else [None] * self.m_, owner)
+        return P.leaves(G._stack(outs))
+
+    # -- backward ------------------------------------------------------------
+
+    def _bticks(self) -> list[list]:
+        """Each backward tick's B unit ``(v, m)`` of every rank (None when
+        idle): the forward plan in reverse tick order under
+        ``"autodiff"``, the backward plan under ``"planned"``."""
+        ev, d_ = self.ev, self.d_
+        if ev.backward == "planned":
+            plan = build_backward_plan(ev.schedule, d_, self.m_, self.v_, self.plan.handoff)
+            ticks = range(plan.num_ticks)
+        else:
+            plan = self.plan
+            ticks = range(plan.num_ticks - 1, -1, -1)
+        return [[(int(plan.group[t, d]), int(plan.microbatch[t, d]))
+                 if plan.microbatch[t, d] >= 0 else None for d in range(d_)] for t in ticks]
+
+    def _recompute(self, v: int, m: int, inp, grad: list[bool], want_dx: bool):
+        """A unit's forward again under autograd, from its stashed input,
+        with no inner recomputation: (output, weight rows, input leaves)."""
+        rows = self._rows(v, grad)
+        xs = [x.detach().requires_grad_(want_dx) for x in P.leaves(inp)]
+        token = G._NO_REMAT.set(True)
+        try:
+            with torch.enable_grad():
+                out = self._apply(m, P.unflatten(self.x_def, xs), rows)
+        finally:
+            G._NO_REMAT.reset(token)
+        return out, rows, xs
+
+    def backward(self, d_outs: list, needs) -> tuple[list, list]:
+        """The B units; returns the gradients of the state leaves and of
+        the source leaves (None where none is needed).
+
+        Each virtual stage's weight gradient is the sum of its items'
+        contributions with the item descending -- autograd's order over
+        the forward tick loop, so the gradients are bitwise the Lazy
+        evaluator's -- summed as they come, so that no more than the
+        running sum and one contribution are held.  Under ``"autodiff"``
+        the reversed forward plan brings each stage's items in that
+        order.  The backward plan brings them ascending, so under
+        ``"planned"`` the B units compute the input cotangents only and
+        keep their own; the weight contributions follow, a stage at a
+        time with the item descending (W units after the B units, as
+        ZB-H1 splits them), each recomputing its unit once more."""
+        d, d_, v_, m_ = self.rank, self.d_, self.v_, self.m_
+        last = d_ * v_ - 1
+        n_s = len(self.s_leaves)
+        need_s, need_x = needs[:n_s], needs[n_s:]
+        diff = [i for i, leaf in enumerate(self.s_leaves)
+                if need_s[i] and leaf.is_floating_point()]
+        grad = [i in diff for i in range(n_s)]
+        want_src = any(need_x)
+        seeds = P.unflatten(self.out_def, d_outs)
+        planned = self.ev.backward == "planned"
+        got: dict = {}
+        cots: dict = {}  # planned: (v, m) -> the unit's output cotangent
+        sums: list = [None] * v_
+        pending: dict = {}
+        turn = [m_ - 1] * v_
+
+        def add(v: int, m: int, dw: list) -> None:
+            pending[v, m] = dw
+            while turn[v] >= 0 and (v, turn[v]) in pending:
+                part = pending.pop((v, turn[v]))
+                sums[v] = part if sums[v] is None else [a + b for a, b in zip(sums[v], part)]
+                turn[v] -= 1
+
+        d_items: list = [None] * m_
+        for row in self._bticks():
+            sends, recvs = [], []
+            if row[d] is not None:
+                v, m = row[d]
+                p = v * d_ + d
+                g = (self._layout(P.tree_map(lambda c: c[m], seeds)) if p == last
+                     else got.pop((p, m)).force())
+                want_dx = p > 0 or want_src
+                if planned:
+                    cots[v, m] = g
+                    dx = []
+                    if want_dx:
+                        out, _, xs = self._recompute(v, m, self.units[p, m],
+                                                     [False] * n_s, True)
+                        _, dx = _unit_grads(out, [], xs, g)
+                else:
+                    out, rows, xs = self.units.pop((p, m))
+                    dw, dx = _unit_grads(out, [rows[i] for i in diff],
+                                         xs if want_dx else [], g)
+                    add(v, m, dw)
+                if p > 0:
+                    sends.append(((p - 1, m), P.unflatten(self.x_def, dx)))
+                elif want_src:
+                    d_items[m] = P.unflatten(self.x_def, dx)
+            nd = (d + 1) % d_
+            if row[nd] is not None and row[nd][0] * d_ + nd > 0:
+                recvs.append((row[nd][0] * d_ + nd - 1, row[nd][1]))
+            self._hop(sends, recvs, got, backward=True)
+        self._drain()
+        if planned and diff:
+            for v in range(v_):
+                for m in range(m_ - 1, -1, -1):
+                    out, rows, _ = self._recompute(v, m, self.units.pop((v * d_ + d, m)),
+                                                   grad, False)
+                    dw, _ = _unit_grads(out, [rows[i] for i in diff], [], cots.pop((v, m)))
+                    add(v, m, dw)
+
+        d_state: list = [None] * n_s
+        for j, i in enumerate(diff):
+            parts = [sums[v][j] for v in range(v_)]
+            d_state[i] = parts[0] if v_ == 1 else torch.cat(parts, dim=0)
+        d_src = [None] * len(self.x_leaves)
+        if want_src:
+            d_items = self._broadcast(d_items if d == 0 else [None] * m_, 0)
+            cols = [P.leaves(dx) for dx in d_items]
+            d_src = [torch.stack([c[j] for c in cols]) if need_x[j] else None
+                     for j in range(len(self.x_leaves))]
+        return d_state, d_src
+
+
+def _unit_grads(out, weights: list, xs: list, g) -> tuple[list, list]:
+    """``torch.autograd.grad`` of one unit's ``out`` at cotangent ``g``
+    with respect to its weight rows and its input leaves (zeros where
+    unused)."""
+    pairs = [(o, c) for o, c in zip(P.leaves(out), P.leaves(g))
+             if isinstance(o, torch.Tensor) and o.requires_grad]
+    inputs = weights + xs
+    grads = [None] * len(inputs)
+    if pairs and inputs:
+        grads = list(torch.autograd.grad(
+            [o for o, _ in pairs], inputs, [c for _, c in pairs], allow_unused=True))
+    grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(inputs, grads)]
+    return grads[: len(weights)], grads[len(weights):]
+
+
+class _Ranked(torch.autograd.Function):
+    """The autograd node of a pipeline across ranks: the F units forward,
+    the B units backward, both in tick order (:meth:`FutureEvaluator.
+    _run_chain_ranked`)."""
+
+    @staticmethod
+    def forward(ctx, run: _RankRun, *flat):
+        ctx.run = run
+        return tuple(run.forward("stash" if run.ev.backward == "planned" else "graph"))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *d_outs):
+        run = ctx.run
+        ctx.run = None
+        d_state, d_src = run.backward(list(d_outs), ctx.needs_input_grad[1:])
+        return (None, *d_state, *d_src)
 
 
 class _PlannedRun:

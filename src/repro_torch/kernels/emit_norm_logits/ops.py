@@ -1,7 +1,10 @@
 """Wrapper of the fused emit CUDA kernel (``csrc/emit_norm_logits.cu``).
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel on the current stream or raises.
+the kernel on the current stream or raises.  A batch wider than one
+launch takes (:func:`emit_tiles`) is tiled over launches, each writing
+its rows of the one ``(B, V)`` output and reading the whole head: the
+head's bytes grow with the launch count.
 """
 from __future__ import annotations
 
@@ -64,6 +67,34 @@ def untied_plan(b: int, d: int, dtype: torch.dtype) -> UntiedPlan:
                      f"for two stages of the untied emit kernel in {SMEM_LIMIT} bytes")
 
 
+# The tied kernel's shared memory: each row of the normalised x padded by
+# 32 elements, the fp32 rmsnorm scale, and 20 KB of the kernels' own (at
+# least two stages of the tied bf16 ring)
+TIED_FIXED = 20 * 1024
+
+
+def tied_max_rows(d: int, dtype: torch.dtype) -> int:
+    """Batch rows one tied launch holds in shared memory at width ``d``;
+    raises where not one row fits."""
+    rows = (SMEM_LIMIT - TIED_FIXED - 4 * d) // ((d + 32) * dtype.itemsize)
+    if rows < 1:
+        raise ValueError(f"d={d}: one row of the normalised x does not fit the tied emit "
+                         f"kernel's shared memory")
+    return rows
+
+
+def emit_tiles(b: int, d: int, dtype: torch.dtype, tied: bool) -> list[tuple[int, int]]:
+    """The launches of one emit call: ``[(first row, end row), ...]``,
+    the fewest launches of at most :func:`tied_max_rows` (tied) or
+    ``UNTIED_MAX_ROWS`` (untied) rows, the rows spread evenly over them.
+    An untied launch splits its rows again where its ``untied_plan``
+    says so."""
+    limit = tied_max_rows(d, dtype) if tied else UNTIED_MAX_ROWS
+    launches = -(-b // limit)
+    rows = -(-b // launches)
+    return [(r, min(b, r + rows)) for r in range(0, b, rows)]
+
+
 def emit_norm_logits(
     x: torch.Tensor,  # (B, 1, d)
     w: torch.Tensor,  # (d, V) untied head | (V, d) tied embedding
@@ -103,25 +134,20 @@ def emit_norm_logits(
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if tied:
-        # the normalised x, its rows padded by 32 elements each, and the fp32
-        # rmsnorm scale, beside 20 KB of the kernels' own (at least two stages
-        # of the tied bf16 ring)
-        if b * (d + 32) * x.element_size() + 4 * d + 20 * 1024 > SMEM_LIMIT:
-            raise ValueError(
-                f"B={b}, d={d}: the normalised x does not fit the kernel's shared memory")
-        plan = (0, 0, 0)
-    else:
-        p = untied_plan(b, d, x.dtype)
-        plan = (p.kc, p.stages, p.rows)
     out = torch.empty((b, v), dtype=torch.float32, device=x.device)
     fn = K.kernel_function("emit_norm_logits", "emit_norm_logits", _ARGTYPES)
-    code = fn(
-        _DTYPES[x.dtype], _NORMS[norm], int(tied),
-        x.data_ptr(), w.data_ptr(), scale.data_ptr() if norm == "rmsnorm" else None,
-        out.data_ptr(), b, d, v, float(eps), *plan,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    K.check_launch("emit_norm_logits", code)
-    K.LAUNCHES["emit_norm_logits"] += 1
+    for r0, r1 in emit_tiles(b, d, x.dtype, tied):
+        if tied:
+            plan = (0, 0, 0)
+        else:
+            p = untied_plan(r1 - r0, d, x.dtype)
+            plan = (p.kc, p.stages, p.rows)
+        code = fn(
+            _DTYPES[x.dtype], _NORMS[norm], int(tied),
+            x[r0:r1].data_ptr(), w.data_ptr(), scale.data_ptr() if norm == "rmsnorm" else None,
+            out[r0:r1].data_ptr(), r1 - r0, d, v, float(eps), *plan,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        K.check_launch("emit_norm_logits", code)
+        K.LAUNCHES["emit_norm_logits"] += 1
     return out

@@ -6,7 +6,8 @@
 restart and replay).
 ``dryrun`` -- every (arch x shape) cell laid out on the 16x16 and
 2x16x16 production mesh shapes, analytically (``mesh`` holds the meshes,
-``specs`` the abstract sharded inputs).  The reference's
-``pipeline_demo`` (a compiled pipelined train step on the 2x16x16 mesh)
-is not ported.
+``specs`` the abstract sharded inputs).
+``pipeline_demo`` -- the cross-pod mode: a train step with its stages on
+the ranks of ``pod`` (run under a process group), and the analytic
+record of its cell on the 2x16x16 mesh (no process group needed).
 """

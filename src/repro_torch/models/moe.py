@@ -11,12 +11,12 @@ the port's are plain PyTorch matrix products.  It keeps the dense
 ``(E, C, d)`` buffer: every expert's weights are read on every call,
 occupied or not.  Under a mesh the dispatch is blocked per data shard,
 as the reference's is: the tokens split into one block per ``(pod,
-data)`` rank, each ranked and given capacity on its own.  A sharded
-call ranks and fills its block on the rank's own tokens, runs the
-experts expert-parallel over ``model`` (the reference's two
-``maybe_constrain``s) and combines on the rank, so the layer stays
-data-parallel; it needs the token count to divide over the ``(pod,
-data)`` ranks.  Under an :class:`~repro_torch.parallel.sharding.
+data)`` rank, halved until the blocks divide the tokens, each ranked
+and given capacity on its own.  A sharded call ranks and fills its
+blocks on the rank's own tokens (a group of ranks shares a block where
+the count was halved), runs the experts expert-parallel over ``model``
+(the reference's two ``maybe_constrain``s) and combines on the rank, so
+the layer stays data-parallel.  Under an :class:`~repro_torch.parallel.sharding.
 AbstractMesh` the same blocks run on plain tensors.
 
 Nothing on the path reads a value back to the host or makes a shape
@@ -221,34 +221,51 @@ def _block(xb, eids, gates, w, e: int, k: int, capacity: int):
     return _combine(out.view(e * capacity, -1), gates, dest, keep, k), rank, keep
 
 
+def _block_axes(ds: int, mesh) -> tuple[str, ...]:
+    """The leading ``(pod, data)`` axes of ``mesh`` that shard ``ds``
+    dispatch blocks: the reference's buffer spec fitted to ``ds`` (axes
+    dropped from the right until their product divides it)."""
+    spec = SH.fit_spec(SH.PartitionSpec(_BLOCKS), (ds,), mesh)
+    return SH._axes_of(spec[0]) if spec else ()
+
+
 def _sharded_blocks(xf, expert_ids, gate_vals, w, e: int, k: int, capacity: int, ds: int):
-    """The dispatch on DTensors, one block a ``(pod, data)`` rank: each
-    rank ranks and fills the buffer from its own tokens, runs its
-    ``model`` share of the experts on its block, gathers the block's
-    expert outputs over ``model`` and combines its tokens.  DTensor has
-    no sharding strategy for the ranking's sort and searchsorted, so
-    the ranking and the indexed write and read work on the local block.
-    Returns (y as a DTensor, and this rank's expert ids, rank and keep)."""
+    """The dispatch on DTensors, ``ds`` blocks over the ``(pod, data)``
+    ranks.  The blocks shard over the leading ``(pod, data)`` axes whose
+    sizes divide ``ds`` (all of them when ``ds`` is the rank count R);
+    the ranks that differ only on the other axes form a group that
+    ranks, fills and combines the same blocks, as the reference's
+    ``_data_shards`` halves its block count where the tokens do not
+    divide over R.  Each rank ranks and fills the buffer from its
+    group's tokens, runs its ``model`` share of the experts on its
+    blocks, gathers the blocks' expert outputs over ``model`` and
+    combines its tokens.  DTensor has no sharding strategy for the
+    ranking's sort and searchsorted, so the ranking and the indexed
+    write and read work on the local blocks.  Returns y and the kept
+    flags as DTensors, and this rank's expert ids, rank and keep."""
     mesh = SH.ACTIVE_MESH
-    sizes = SH.mesh_axes(mesh)
-    if ds != math.prod(sizes.get(a, 1) for a in _BLOCKS):
-        raise NotImplementedError(
-            f"a sharded MoE dispatch takes one block a (pod, data) rank: {xf.shape[0]} "
-            f"tokens do not divide over {math.prod(sizes.get(a, 1) for a in _BLOCKS)}")
     d = xf.shape[1]
-    tok = SH.PartitionSpec(_BLOCKS, None)
+    axes = _block_axes(ds, mesh)
+    local_blocks = ds // math.prod(SH.mesh_axes(mesh)[a] for a in axes)
+    tok = SH.PartitionSpec(SH._part(axes), None)
     xl, el, gl = (SH.local_shard(v, tok) for v in (xf, expert_ids, gate_vals))
-    rank, keep, dest = dispatch(el, e, capacity)
-    buf = _write_buffer(xl, dest, k, e * capacity + 1)[:-1].view(1, e, capacity, d)
+    parts = [dispatch(eb, e, capacity) for eb in el.chunk(local_blocks)]
+    rank, keep = (torch.cat(z) for z in zip(*[(r, kp) for r, kp, _ in parts]))
+    bufs = [_write_buffer(xb, dest, k, e * capacity + 1)[:-1].view(e, capacity, d)
+            for xb, (_, _, dest) in zip(xl.chunk(local_blocks), parts)]
+    buf = torch.stack(bufs)
     # the experts over model where they divide over it, else every rank's
     bspec = SH.fit_spec(_BUF, (ds, e, capacity, d), mesh)
-    buf = SH.maybe_constrain(SH.from_local(buf, SH.PartitionSpec(_BLOCKS)), bspec)
+    buf = SH.maybe_constrain(SH.from_local(buf, SH.PartitionSpec(SH._part(axes))), bspec)
     wspec = SH.fit_spec(_EXPERTS, tuple(w[0].shape), mesh)
-    wl = [SH.local_shard(x, wspec, partial_grad_over=_BLOCKS) for x in w]
-    out = _swiglu(SH.local_shard(buf, bspec)[0], *wl)
-    out = SH.maybe_constrain(SH.from_local(out[None], bspec), bspec)
-    out = SH.local_shard(out, SH.PartitionSpec(_BLOCKS))[0].view(e * capacity, d)
-    return SH.from_local(_combine(out, gl, dest, keep, k), tok), el, rank, keep
+    wl = [SH.local_shard(x, wspec, partial_grad_over=axes) for x in w]
+    out = _swiglu(SH.local_shard(buf, bspec), *wl)
+    out = SH.maybe_constrain(SH.from_local(out, bspec), bspec)
+    out = SH.local_shard(out, SH.PartitionSpec(SH._part(axes)))
+    y = torch.cat([_combine(o.reshape(e * capacity, d), gb, dest, kp, k)
+                   for o, gb, (_, kp, dest) in zip(out, gl.chunk(local_blocks), parts)])
+    kept = SH.from_local(keep.float(), SH.PartitionSpec(SH._part(axes)))
+    return SH.from_local(y, tok), kept, el, rank, keep
 
 
 def moe_apply(params, x: torch.Tensor, moe: MoEConfig, *, capacity: int | None = None):
@@ -274,9 +291,8 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, *, capacity: int | None =
         capacity = expert_capacity(t // ds, moe)
     w = (params["w_gate"], params["w_up"], params["w_down"])
     if SH.is_sharded(xf):
-        y, expert_ids, rank, keep = _sharded_blocks(xf, expert_ids, gate_vals, w, e, k,
-                                                    capacity, ds)
-        kept = SH.from_local(keep.float(), SH.PartitionSpec(_BLOCKS))
+        y, kept, expert_ids, rank, keep = _sharded_blocks(xf, expert_ids, gate_vals, w, e, k,
+                                                          capacity, ds)
     else:
         blocks = [_block(xb, eb, gb, w, e, k, capacity)
                   for xb, eb, gb in zip(xf.chunk(ds), expert_ids.chunk(ds), gate_vals.chunk(ds))]

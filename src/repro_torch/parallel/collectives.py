@@ -18,7 +18,9 @@ from repro_torch.core.future import (
     Future,
     all_gather_future,
     axis_group,
+    p2p,
     psum_scatter_future,
+    ring_peers,
 )
 
 PyTree = Any
@@ -42,13 +44,8 @@ def ring_all_gather_overlapped(
     the reference does.  (The reference's last hop moves a shard nobody
     reads; it is not issued here.)
     """
-    import torch.distributed as dist
-
     group = axis_group(axis_name, mesh)
-    size = dist.get_world_size(group)
-    idx = dist.get_rank(group)
-    send_to = dist.get_global_rank(group, (idx + 1) % size)
-    recv_from = dist.get_global_rank(group, (idx - 1) % size)
+    size, idx, send_to, recv_from = ring_peers(group)
     results = []
     shard = x.contiguous()
     for hop in range(size):
@@ -56,10 +53,7 @@ def ring_all_gather_overlapped(
         if hop + 1 < size:
             # start moving the next shard now (future) ...
             nxt = torch.empty_like(shard)
-            works = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, shard, send_to, group),
-                dist.P2POp(dist.irecv, nxt, recv_from, group),
-            ])
+            works = p2p([(shard, send_to, 0)], [(nxt, recv_from, 0)], group)
             fut = Future(nxt, False, _works=works, _held=shard)
         # ... while computing on the current one
         results.append(compute_fn(shard, (idx - hop) % size))

@@ -331,13 +331,16 @@ def maybe_constrain(x, spec: PartitionSpec):
 
     Returns ``x`` itself unless a mesh is set by :func:`set_mesh` and
     ``x`` is a DTensor; then ``x`` is redistributed to ``spec``'s
-    placements (axes the mesh lacks pruned).  ``REPRO_NO_CONSTRAIN=1``
-    turns every constraint off, as in the reference.
+    placements, fitted to ``x``'s shape (axes the mesh lacks pruned, and
+    axes whose sizes do not divide a dim dropped: GSPMD pads an uneven
+    shard, DTensor's views refuse one).  ``REPRO_NO_CONSTRAIN=1`` turns
+    every constraint off, as in the reference.
 
     The reference also drops the manual axes of a partial-manual
     ``shard_map`` region (its stream-future pipeline).  The port's
-    pipeline runs stages on CUDA streams, not on a manual mesh axis, so
-    that branch has no counterpart.
+    pipeline across ranks sets the stage's sub-mesh, which lacks the
+    pipeline axis, as the mesh (``launch.pipeline_demo``), so the
+    pruning above drops it the same way.
     """
     mesh = ACTIVE_MESH
     if mesh is None:
@@ -350,7 +353,7 @@ def maybe_constrain(x, spec: PartitionSpec):
         return x
     # a redistribute even to the placements x has: its backward pins the
     # gradient too, as the reference's constraint binds the cotangent
-    return x.redistribute(mesh, placements(spec, mesh))
+    return x.redistribute(mesh, placements(fit_spec(spec, tuple(x.shape), mesh), mesh))
 
 
 def shard_activation(x, logical_axes, rules, mesh=None):

@@ -160,7 +160,7 @@ def accumulate_grads(
     data-axis reduction of a gradient then lands on its FSDP shard."""
     if tcfg.num_microbatches == 1:
         (_, metrics), grads = value_and_grad(params, cfg, batch, tcfg)
-        return grads, metrics
+        return _constrain(grads, param_pspecs), metrics
 
     micro = chunk_axis(batch, tcfg.num_microbatches)
 

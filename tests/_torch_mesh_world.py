@@ -9,6 +9,7 @@ imports no JAX.  Rank 0 ends with the elastic step down to one rank: a
 world of its own (one rank, a hash store) restoring the checkpoint the
 four ranks wrote into a template sharded on a (1, 1) mesh.
 """
+import dataclasses
 import json
 import os
 import sys
@@ -89,6 +90,47 @@ def full(x):
     return x.full_tensor() if SH.is_dtensor(x) else x
 
 
+def step_case(arch, acfg, alayout, aparams, tcfg, batch, mesh, report, out):
+    """One sharded train step on ``mesh`` against the unsharded step on
+    plain tensors under the abstract mesh of the same shape (its MoE
+    dispatch blocked by data shard as the sharded one is): losses, drop
+    fractions, the constraint count and every leaf into ``report`` and
+    ``out`` under ``arch``."""
+    dbatch = {}
+    for k, v in batch.items():
+        bspec = SH.fit_spec(SH.spec_for(("batch",) + (None,) * (v.dim() - 1),
+                                        SH.TRAIN_RULES), tuple(v.shape), mesh)
+        dbatch[k] = SH.distribute(v, mesh, SH.placements(bspec, mesh))
+    aspecs = SH.param_pspecs(alayout, SH.TRAIN_RULES, mesh)
+    dparams = remesh_state(aparams, alayout, SH.TRAIN_RULES, mesh)
+    with SH.set_mesh(SH.AbstractMesh(tuple(mesh.shape), tuple(mesh.mesh_dim_names))):
+        plain = make_train_step(acfg, tcfg, OCFG)(aparams, O.init_opt_state(aparams, OCFG),
+                                                  batch)
+    calls = []
+    inner = SH.maybe_constrain
+
+    def counting(x, spec):
+        calls.append(SH.is_dtensor(x))
+        return inner(x, spec)
+
+    SH.maybe_constrain = counting
+    try:
+        step = make_train_step(acfg, tcfg, OCFG, param_pspecs=aspecs)
+        with SH.set_mesh(mesh):
+            sharded = step(dparams, O.init_opt_state(dparams, OCFG), dbatch)
+    finally:
+        SH.maybe_constrain = inner
+    report[f"{arch}_constrained_dtensors"] = sum(calls)
+    report[f"{arch}_sharded_params_placements"] = all(
+        tuple(t.placements) == SH.placements(s, mesh)
+        for t, s in zip(PT.leaves(sharded[0]), PT.leaves(aspecs)))
+    for tag, (p, o, m) in (("plain", plain), ("sharded", sharded)):
+        report[f"{arch}_loss_{tag}"] = float(full(m["loss"]))
+        report[f"{arch}_drop_{tag}"] = float(full(m["moe_drop_fraction"]))
+        for path, leaf in PT.flatten_with_paths({"params": p, "m": o["m"], "v": o["v"]}):
+            out[f"{arch}_{tag}{path}"] = full(leaf)
+
+
 def main(rank: int, world: int, d: str):
     torch.set_num_threads(1)
     inp, jx = np.load(os.path.join(d, "inputs.npz")), np.load(os.path.join(d, "jax.npz"))
@@ -147,43 +189,26 @@ def main(rank: int, world: int, d: str):
     # attention, and moonshot's (MoE), jamba's (SSM, attention, MoE),
     # mamba2's (SSM) and llama-3.2-vision's (cross-attention) on the port's
     # own
+    moe_cases = []
     for arch, acfg, alayout, aparams, tcfg in step_cases(cfg, layout, params):
         batch = {k: torch.from_numpy(inp[k]).long() for k in ("tokens", "labels")}
         if acfg.vision_tokens:
             batch["vision_embeds"] = torch.from_numpy(inp["vision_embeds"])
-        dbatch = {}
-        for k, v in batch.items():
-            bspec = SH.fit_spec(SH.spec_for(("batch",) + (None,) * (v.dim() - 1),
-                                            SH.TRAIN_RULES), tuple(v.shape), mesh2)
-            dbatch[k] = SH.distribute(v, mesh2, SH.placements(bspec, mesh2))
-        aspecs = SH.param_pspecs(alayout, SH.TRAIN_RULES, mesh2)
-        dparams = remesh_state(aparams, alayout, SH.TRAIN_RULES, mesh2)
-        with SH.set_mesh(SH.AbstractMesh((2, 2), ("data", "model"))):
-            plain = make_train_step(acfg, tcfg, OCFG)(aparams, O.init_opt_state(aparams, OCFG),
-                                                      batch)
-        calls = []
-        inner = SH.maybe_constrain
-
-        def counting(x, spec):
-            calls.append(SH.is_dtensor(x))
-            return inner(x, spec)
-
-        SH.maybe_constrain = counting
-        try:
-            step = make_train_step(acfg, tcfg, OCFG, param_pspecs=aspecs)
-            with SH.set_mesh(mesh2):
-                sharded = step(dparams, O.init_opt_state(dparams, OCFG), dbatch)
-        finally:
-            SH.maybe_constrain = inner
-        report[f"{arch}_constrained_dtensors"] = sum(calls)
-        report[f"{arch}_sharded_params_placements"] = all(
-            tuple(t.placements) == SH.placements(s, mesh2)
-            for t, s in zip(PT.leaves(sharded[0]), PT.leaves(aspecs)))
-        for tag, (p, o, m) in (("plain", plain), ("sharded", sharded)):
-            report[f"{arch}_loss_{tag}"] = float(full(m["loss"]))
-            report[f"{arch}_drop_{tag}"] = float(full(m["moe_drop_fraction"]))
-            for path, leaf in PT.flatten_with_paths({"params": p, "m": o["m"], "v": o["v"]}):
-                out[f"{arch}_{tag}{path}"] = full(leaf)
+        step_case(arch, acfg, alayout, aparams, tcfg, batch, mesh2, report, out)
+        if acfg.moe is not None:
+            moe_cases.append((arch, acfg, alayout, aparams, tcfg))
+    # the MoE dispatch at halved blocks: 6 tokens (B 1 x S 6, one
+    # microbatch) over 4 (pod, data) ranks make 2 blocks, each shared by
+    # the 2 data ranks of a pod rank; over (data 4, model 1) the 2 blocks
+    # shard over no axis and every rank runs both
+    batch6 = {k: torch.from_numpy(inp[k + "6"]).long() for k in ("tokens", "labels")}
+    mesh_pd = make_mesh((2, 2), ("pod", "data"))
+    for arch, acfg, alayout, aparams, tcfg in moe_cases:
+        tcfg1 = dataclasses.replace(tcfg, num_microbatches=1)
+        step_case(f"{arch}_ds2", acfg, alayout, aparams, tcfg1, batch6, mesh_pd, report, out)
+        if arch == "moonshot":
+            step_case(f"{arch}_ds2_data4", acfg, alayout, aparams, tcfg1, batch6, mesh41,
+                      report, out)
     dist.barrier()
     dist.destroy_process_group()
 

@@ -233,10 +233,8 @@ def test_emit_untied_zoo_heads_match_plain(dtype, d, v):
 
 
 def test_emit_untied_refuses_what_does_not_fit():
-    x = torch.zeros(65, 1, 256, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 64 rows"):
-        emit_norm_logits(x, torch.zeros(256, 64, device="cuda", dtype=torch.bfloat16),
-                         norm="layernorm_nonparam")
+    """A row of x too wide for two stages beside it (a batch past 64 rows
+    is tiled over launches: test_emit_wide_batches_tile_over_launches)."""
     x = torch.zeros(1, 1, 120000, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no room"):
         emit_norm_logits(x, torch.zeros(120000, 64, device="cuda", dtype=torch.bfloat16),
@@ -260,6 +258,24 @@ def test_emit_untied_in_a_graph(dtype, b, d, v):
         graph.replay()
         torch.cuda.synchronize()
         _assert_emit_close(out, emit_norm_logits_ref(x, w, scale=scale, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+@pytest.mark.parametrize("b", [49, 65, 128, 256])
+def test_emit_wide_batches_tile_over_launches(dtype, tied, b):
+    """Past the rows one launch holds (tied: what fits shared memory, 48
+    bf16 rows at d 2048; untied: 64), the batch is tiled over launches
+    (``emit_tiles``), each writing its rows of the one output: every row
+    holds to the plain version, and the launches are the plan's."""
+    from repro_torch.kernels.emit_norm_logits.ops import emit_tiles
+
+    d, v = 2048, 50304
+    x, w, scale = _emit_case(_gen(4), dtype, tied, b, v, d)
+    kw = dict(norm="rmsnorm", tied=tied, scale=scale)
+    got = emit_norm_logits(x, w, **kw)
+    _assert_emit_close(got, emit_norm_logits_ref(x, w, **kw), dtype)
+    assert K.LAUNCHES["emit_norm_logits"] == len(emit_tiles(b, d, dtype, tied))
 
 
 def _emit_case(gen, dtype, tied, b, v, d):
@@ -1673,4 +1689,74 @@ def test_remesh_state_and_sharded_restore_on_the_card(nccl_mesh, tmp_path, arch,
     assert all(torch.equal(a, b) for a, b in zip(local, P.leaves(plain[:2])))
     loss = sharded[2]["loss"]
     assert torch.equal(loss.to_local() if SH.is_dtensor(loss) else loss, plain[2]["loss"])
+    assert K.LAUNCHES == {op: 0 for op in K.OPS}
+
+
+# ---------------------------------------------------------------------------
+# launch/pipeline_demo: the pipelined step across a one-rank pod axis (four
+# gloo ranks check hops across ranks on the CPU, tests/test_torch_pipeline_demo.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_pod():
+    """A one-rank ``pod`` mesh over a one-rank NCCL group on cuda:0."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1,), ("pod",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_size_one_ring_hop_is_the_value(nccl_pod):
+    from repro_torch.core.future import ring_hop_future
+
+    x = torch.randn((4, 33), generator=_gen(6), device="cuda").requires_grad_(True)
+    y = ring_hop_future(x, "pod", mesh=nccl_pod).force()
+    assert y is x
+    (g,) = torch.autograd.grad((y * 3).sum(), [x])
+    assert torch.equal(g, torch.full_like(x, 3.0))
+
+
+@pytest.mark.parametrize("schedule,interleave,backward", [
+    ("gpipe", 1, "autodiff"), ("interleaved", 2, "autodiff"), ("one_f_one_b", 1, "planned"),
+    ("interleaved", 2, "planned")])
+def test_pipelined_demo_step_on_the_card_equals_lazy(nccl_pod, schedule, interleave, backward):
+    """The demo step (qwen3-32b's smoke config, 4 layers, fp32, 16 x 32
+    tokens in 8 microbatches) across the one-rank pod axis in 2 stages,
+    bitwise the Lazy step's, under deterministic algorithms."""
+    from repro_torch import pytree as P
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.core.pipeline import local_stages
+    from repro_torch.launch import pipeline_demo as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = smoke_config(get_config("qwen3-32b")).with_overrides(
+        num_layers=4, dtype=torch.float32, kernels="plain")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (16, 33)))
+    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+
+    def start():
+        params = init_params(T.model_layout(cfg), seed=0, device="cuda")
+        return dict(params, blocks=PD.stage_params(params["blocks"], 2))
+
+    tcfg = PD._train_config(pipeline_schedule=schedule, pipeline_interleave=interleave,
+                            pipeline_backward=backward)
+    torch.use_deterministic_algorithms(True)
+    try:
+        want, want_loss = PD.make_pipelined_loss(cfg, nccl_pod, tcfg, 2, lazy=True)(
+            start(), batch)
+        params = start()
+        params["blocks"] = local_stages(params["blocks"], tcfg.pipeline_config(2), nccl_pod)
+        got, loss = PD.make_pipelined_loss(cfg, nccl_pod, tcfg, 2)(params, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(loss) and torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(P.leaves(got), P.leaves(want)))
     assert K.LAUNCHES == {op: 0 for op in K.OPS}

@@ -40,7 +40,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.pipeline", "repro_torch.launch.train"} <= set(mods)
     assert {"repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
             "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.launch.dryrun",
-            "repro_torch.train.elastic"} <= set(mods)
+            "repro_torch.train.elastic", "repro_torch.launch.pipeline_demo"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -31,7 +31,11 @@ Held here:
   1e-5), the MoE drop fraction (exactly) and every param and moment leaf
   (atol 1e-5) equal the port's unsharded step, run on plain tensors
   under the abstract (2, 2) mesh so that its MoE dispatch is blocked by
-  data shard as the sharded one is (and the reference's); qwen3's
+  data shard as the sharded one is (and the reference's); moonshot's
+  and jamba's steps again at 6 tokens (B 1 x S 6) on a (pod 2, data 2)
+  mesh, where the dispatch halves to 2 blocks, each shared by a pod
+  rank's two data ranks, and moonshot's on (data 4, model 1), where
+  every rank runs both blocks; qwen3's
   unsharded step equals the JAX unsharded step at tests/test_torch_train_accum.py's
   bounds (loss rtol 1e-5, leaves within 2e-5 * max|p|).  AdamW runs at
   eps 1e-3 and lr 1e-3 there, as in that file.  The JAX *sharded* step
@@ -51,7 +55,8 @@ WORLD = 4
 JAX_TIMEOUT, WORLD_TIMEOUT = 180, 300
 SHARD_NAMES = ("tuple", "two_dim", "swapped", "model_only")
 LOSS_RTOL, LEAF_ATOL, PARAM_TOL = 1e-5, 1e-5, 2e-5
-STEP_ARCHS = ("qwen3", "qwen3_chunked", "moonshot", "jamba", "mamba2", "vision")
+STEP_ARCHS = ("qwen3", "qwen3_chunked", "moonshot", "jamba", "mamba2", "vision",
+              "moonshot_ds2", "jamba_ds2", "moonshot_ds2_data4")
 
 JAX_SCRIPT = r"""
 import os, sys
@@ -158,6 +163,8 @@ def world(tmp_path_factory):
         tokens=rng.integers(0, 256, (4, 16)).astype(np.int32),
         labels=rng.integers(0, 256, (4, 16)).astype(np.int32),
         vision_embeds=rng.standard_normal((4, 16, 64)).astype(np.float32),
+        tokens6=rng.integers(0, 256, (1, 6)).astype(np.int32),
+        labels6=rng.integers(0, 256, (1, 6)).astype(np.int32),
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     [(rc, err)] = _run([[sys.executable, "-c", JAX_SCRIPT, d]], env, JAX_TIMEOUT, d, "jax")
