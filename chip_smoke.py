@@ -96,9 +96,11 @@
    it that stays on the card) under ``torch.cuda.set_sync_debug_mode
    ("error")``, so that a cell which syncs with the host fails: the
    sieve at the paper's ``primes`` (limit 20000, 256-wide blocks, 16
-   primes a cell: 2262 primes, against Eratosthenes), then under the
-   ``FutureEvaluator`` on 4 stage streams (168 cells), equal to the
-   Lazy run, with the stages' overlap from events around every unit;
+   primes a cell: 2262 primes, against Eratosthenes), then at limit
+   5000 (669 primes, 48 cells; cut from 20000 in PR 27 to keep the
+   script inside its limit) under the Lazy evaluator and the
+   ``FutureEvaluator`` on 4 stage streams, equal to each other, with the
+   stages' overlap from events around every unit;
    Fateman's
    (1+x+y+z)^20 squared (12341 terms) through ``times`` (4 x-chunks, 8
    terms a cell) and ``times_dense``, at 12 limbs with the factor
@@ -168,6 +170,16 @@
    every leaf bitwise the Lazy steps', with step p50 and peak memory; c,
    ``pipeline_demo.main()``'s record of qwen3-32b x train_4k on the
    2x16x16 mesh (analytic).  No kernel launches.
+
+14. ``FutureEvaluator(mesh=)`` on step 12's one-rank NCCL group, over a
+   one-rank ``pod`` mesh: a, full-width OLMo-1B (built again from seed 0)
+   served through ``StreamEngine(mesh=)``, each round under the sync
+   guard: 4 cells and 1 microbatch, the greedy flash Engine's tokens; 8
+   cells and 4 microbatches of 2 under gpipe and under interleaved (2
+   virtual stages), run b's tokens and b's decode-attention, emit and
+   flash launches; b, the sieve at limit 5000 (669 primes) and the
+   4-limb Fateman product across the axis, each bitwise step 9's Lazy
+   run.  About 50 s.
 
 Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
 11), twice: the two runs must give the same tokens (the sampling key is
@@ -1318,7 +1330,7 @@ def attention_layers(cfg) -> tuple[int, int]:
 
 
 def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overlap=False,
-                      **pipe):
+                      mesh=None, **pipe):
     """Serve the 12 requests through ``StreamEngine`` ("flash",
     ``kernels="cuda"``); every round's ``collect`` under
     :class:`no_host_sync`.  The launch counters, zeroed just before the
@@ -1330,8 +1342,9 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
     below the memory allocated before it plus the round's admission
     payload plus one cell's cache shard (no round copies the cache).
     With ``overlap`` (a Future run), events around every unit give the
-    stages' overlap over the rounds.  Returns the out_tokens and the
-    launch counts."""
+    stages' overlap over the rounds.  ``mesh`` runs the rounds across the
+    ranks of its ``pod`` axis.  Returns the out_tokens and the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -1344,7 +1357,7 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
     pcfg = DecodePipelineConfig(kernels="cuda", **pipe)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
-    eng = StreamEngine(params, cfg, scfg, pcfg, stages=stages, device="cuda")
+    eng = StreamEngine(params, cfg, scfg, pcfg, stages=stages, mesh=mesh, device="cuda")
     shard = tree_bytes(eng.cell_states) // pcfg.num_cells
     rounds, prefills, peaks, units = [], [0], [], []
     eng.evaluator.time_units = overlap
@@ -1390,13 +1403,16 @@ def run_stream_engine(cfg, params, label, smi, *, stages=None, serve=None, overl
 def run_stream_engine_phase(cfg, params, smi, engine_greedy, engine_hot):
     """Runs a-f: the StreamEngine under the Lazy and the Future evaluator
     against the Engine's tokens and each other.  Returns the summed
-    launch counts and b's tokens (which c, d and e equal)."""
+    launch counts, b's tokens (which c, d and e equal) and b's launch
+    counts."""
     total = dict(NO_LAUNCHES)
+    each = {}
 
     def run(label, **kw):
         tokens, launches = run_stream_engine(cfg, params, label, smi, **kw)
         for k, v in launches.items():
             total[k] += v
+        each[label[0]] = launches
         return tokens
 
     def agree(x, y):
@@ -1428,7 +1444,7 @@ def run_stream_engine_phase(cfg, params, smi, engine_greedy, engine_hot):
     print(f"stream engine f: two runs identical; {agree(hot[0], engine_hot)}/{n} tokens equal to "
           f"the Engine's temperature-0.9 tokens (the emit samples on the card, the Engine on "
           f"the host)", flush=True)
-    return total, b
+    return total, b, each["b"]
 
 
 # ---------------------------------------------------------------------------
@@ -1819,7 +1835,7 @@ BIG_FACTOR = 100000000001  # the paper's stream_big
 FATEMAN_POWER = 20
 FATEMAN_CAPACITY = 1776  # 1771 terms, padded to 4 x-chunks and 222 cells of 8
 FATEMAN_FUTURE_CAPACITY = 1792  # 224 cells of 8: 56 on each of 4 stages
-SIEVE_FUTURE_CELLS = 168  # 4 x 42 cells of 16 primes hold pi(20000) = 2262
+SIEVE_FUTURE_LIMIT = 5000  # 669 primes: 20 blocks of 256 through 48 cells of 16 (12 a stage)
 
 
 def print_overlap(runs, label, smi) -> None:
@@ -1875,9 +1891,12 @@ def timed_on_card(fn):
     return out, time.perf_counter() - t
 
 
-def run_stream_phase(smi: str) -> None:
+def run_stream_phase(smi: str):
     """The sieve, both Fateman widths (stream and dense) and a deferred
-    computation, on the card; each checked against its host oracle."""
+    computation, on the card; each checked against its host oracle.
+    Returns the 4-limb Lazy product and its wall time and the Lazy sieve
+    at ``SIEVE_FUTURE_LIMIT`` and its wall time (step 14 holds its runs
+    across a rank to them)."""
     import numpy as np
     import torch
 
@@ -1899,20 +1918,25 @@ def run_stream_phase(smi: str) -> None:
           f"blocks x {stream.num_cells} cells, {int(count)} primes, equal to Eratosthenes, "
           f"in {wall:.3f} s (Lazy, no host sync)", flush=True)
 
-    # The same sieve under the Future evaluator on 4 stage streams: 168
-    # cells (4 x 42) hold the 2262 primes; a unit's start and end events
-    # on its stage stream give the first reading of the stages' overlap.
+    # A smaller sieve under the Lazy evaluator and under the Future
+    # evaluator on 4 stage streams (48 cells, 12 a stage); a unit's start
+    # and end events on its stage stream give the stages' overlap.
     future = FutureEvaluator(4, schedule="gpipe", time_units=True)
-    stream = sieve.sieve_stream(CONFIG.primes_limit, block_size=CONFIG.primes_block,
-                                primes_per_cell=CONFIG.primes_per_cell,
-                                num_cells=SIEVE_FUTURE_CELLS, device="cuda")
-    (fprimes, fcount), fwall = timed_on_card(lambda: sieve.sieve_result(stream.collect(future)))
-    fp = fprimes.cpu().numpy()
-    if int(fcount) != int(count) or not np.array_equal(fp[fp > 0], p[p > 0]):
-        fail(f"sieve under Future: {int(fcount)} primes, not the Lazy run's {int(count)}")
-    print(f"stream sieve Future ({smi}): 4 stages (gpipe), {stream.num_cells} cells: "
-          f"{int(fcount)} primes, equal to Eratosthenes and to the Lazy run, in {fwall:.3f} s "
-          f"(Lazy {wall:.3f} s; no host sync)", flush=True)
+    runs = []
+    for ev in (lazy, future):
+        stream = sieve.sieve_stream(SIEVE_FUTURE_LIMIT, block_size=CONFIG.primes_block,
+                                    primes_per_cell=CONFIG.primes_per_cell, device="cuda")
+        runs.append(timed_on_card(lambda: sieve.sieve_result(stream.collect(ev))))
+    ((sprimes, scount), swall), ((fprimes, fcount), fwall) = runs
+    sp, fp = sprimes.cpu().numpy(), fprimes.cpu().numpy()
+    sref = sieve.reference_primes(SIEVE_FUTURE_LIMIT)
+    if int(scount) != len(sref) or not np.array_equal(sp[sp > 0], sref):
+        fail(f"sieve at {SIEVE_FUTURE_LIMIT}: {int(scount)} primes, expected {len(sref)}")
+    if not np.array_equal(fp, sp):
+        fail(f"sieve under Future: {int(fcount)} primes, not the Lazy run's {int(scount)}")
+    print(f"stream sieve Future ({smi}): limit {SIEVE_FUTURE_LIMIT}, 4 stages (gpipe), "
+          f"{stream.num_cells} cells: {int(fcount)} primes, equal to Eratosthenes and to the "
+          f"Lazy run, in {fwall:.3f} s (Lazy {swall:.3f} s; no host sync)", flush=True)
     print_overlap([future.unit_times()], "stream sieve Future", smi)
 
     terms = poly.fateman_terms(FATEMAN_POWER)
@@ -1979,6 +2003,7 @@ def run_stream_phase(smi: str) -> None:
         fail("defer: the forced value differs from the direct computation")
     print("stream defer: a side-stream computation forced on the current stream after 8 "
           "matmuls there equals the direct computation bitwise (no host sync)", flush=True)
+    return got, wall, sprimes, swall
 
 
 # ---------------------------------------------------------------------------
@@ -3020,11 +3045,13 @@ def run_dryrun_cells(smi) -> None:
           f"taken on any chip", flush=True)
 
 
-def run_mesh_phase(smi) -> None:
+def run_mesh_phase(smi, served) -> dict:
     """12. The mesh layer on a one-rank NCCL process group over ``cuda:0``
     and a (data 1, model 1) ``DeviceMesh``: a, the collectives; b, the
     elastic resume of full-width OLMo-1B from step 10c's checkpoint; c,
-    the dry run; then step 13 on the same group.  No kernel launches."""
+    the dry run; then step 13 on the same group (no kernel launches in
+    12 and 13), and step 14 (``served``: what it is held to).  Returns
+    step 14's launch counts."""
     import shutil
 
     import torch
@@ -3049,13 +3076,17 @@ def run_mesh_phase(smi) -> None:
         free_card()
         # 13. The pipelined demo step on the same group
         run_pipeline_phase(smi)
+        check_no_launches("mesh phase")
+        free_card()
+        print(f"mesh phase, steps 12 and 13 ({smi}): {time.perf_counter() - started:.1f} s; the "
+              f"five kernels launched 0 times", flush=True)
+        # 14. StreamEngine and the paper's programs across a one-rank pod axis
+        launches = run_serve_ranks_phase(smi, served)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
-    check_no_launches("mesh phase")
     free_card()
-    print(f"mesh phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
-          f"launched 0 times", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3229,6 +3260,108 @@ def run_pipeline_phase(smi) -> None:
     run_pipeline_record(smi)
     print(f"13 pipeline phase ({smi}): {time.perf_counter() - started:.1f} s; the five kernels "
           f"launched 0 times", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 14. The StreamEngine and the paper's programs across the ranks of a pod
+# axis, on step 12's one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def run_serve_ranks_phase(smi, served) -> dict:
+    """14. ``FutureEvaluator(mesh=)`` on step 12's one-rank NCCL group, a
+    one-rank ``pod`` mesh (one H100 holds one NCCL rank, so no hop
+    crosses ranks here: four gloo ranks check that on the CPU,
+    tests/test_torch_future_ranks.py, and four cards
+    scripts/serve_ranks.py).  a, full-width OLMo-1B (bf16, ``"flash"``,
+    ``kernels="cuda"``, random weights from seed 0, built again) serves
+    the 12 requests through ``StreamEngine(mesh=)``, every round under the
+    sync guard: 4 cells and 1 microbatch of 8 (run a's pipeline), whose
+    tokens must equal the greedy flash Engine's; 8 cells and 4
+    microbatches of 2 (run b's) under gpipe and under interleaved (2
+    virtual stages), whose tokens must equal run b's and whose
+    decode-attention, emit and flash launches must equal b's.  b, the
+    sieve at limit 5000 (blocks of 256, 16 primes a cell: 669 primes) and
+    the 4-limb Fateman product ((1+x+y+z)^20 squared) across the axis,
+    each equal to step 9's Lazy run.  About 50 s.  ``served``: the
+    Engine's and run b's tokens, b's launches, step 9's Lazy product and
+    sieve and their wall times.  Returns the launch counts of the three
+    runs, summed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    started = time.perf_counter()
+    mesh = make_mesh((1,), ("pod",))
+    cfg = get_config("olmo-1b")
+    params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cuda")).params
+    total = dict(NO_LAUNCHES)
+
+    def run(label, want, what, **pipe):
+        tokens, launches = run_stream_engine(cfg, params, f"14a {label}", smi, mesh=mesh,
+                                             **pipe)
+        if tokens != want:
+            agree = sum(a == b for x, y in zip(tokens, want) for a, b in zip(x, y))
+            fail(f"14a {label}: tokens differ from {what} ({agree}/{sum(map(len, want))} agree)")
+        for k, v in launches.items():
+            total[k] += v
+        return launches
+
+    run("across 1 pod rank, 4 cells, 1 microbatch", served["engine"], "the greedy flash Engine's",
+        num_cells=4, microbatches=1, round_steps=8, admit_per_round=4)
+    print("14a stream engine across 1 pod rank, 4 cells, 1 microbatch: tokens identical to the "
+          "greedy flash Engine's", flush=True)
+    for label, kw in (("gpipe", dict(schedule="gpipe")),
+                      ("interleaved x2", dict(schedule="interleaved", interleave=2))):
+        launches = run(f"across 1 pod rank, 8 cells, 4 microbatches, {label}", served["b"],
+                       "run b's", num_cells=8, microbatches=4, **kw)
+        counted = ("decode_attention", "emit_norm_logits", "attention")
+        if any(launches[k] != served["b_launches"][k] for k in counted):
+            fail(f"14a {label}: launches {launches}, run b's {served['b_launches']}")
+        print(f"14a stream engine across 1 pod rank, {label}: tokens identical to run b's, "
+              f"decode attention, emit and flash launches equal to b's "
+              f"({[launches[k] for k in counted]})", flush=True)
+    del params
+    free_card()
+    run_rank_programs(mesh, smi, served)
+    print(f"14 serve-ranks phase ({smi}): {time.perf_counter() - started:.1f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
+def run_rank_programs(mesh, smi, served) -> None:
+    """14b. The sieve at ``SIEVE_FUTURE_LIMIT`` and step 9's 4-limb
+    Fateman product across ``mesh``'s ``pod`` axis, each against step 9's
+    Lazy run (the sieve's stream built outside the sync guard: the
+    candidates' copy to the card syncs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import polynomial as poly
+    from repro_torch.algorithms import sieve
+    from repro_torch.configs.paper_stream import CONFIG
+    from repro_torch.core import FutureEvaluator
+
+    ranked = FutureEvaluator(mesh=mesh)
+    stream = sieve.sieve_stream(SIEVE_FUTURE_LIMIT, block_size=CONFIG.primes_block,
+                                primes_per_cell=CONFIG.primes_per_cell, device="cuda")
+    (primes, _), wall = timed_on_card(lambda: sieve.sieve_result(stream.collect(ranked), ranked))
+    if not np.array_equal(primes.cpu().numpy(), served["primes"].cpu().numpy()):
+        fail("14b sieve across 1 pod rank: the primes differ from step 9's Lazy run's")
+    print(f"14b sieve ({smi}): limit {SIEVE_FUTURE_LIMIT}, across 1 pod rank {wall:.3f} s, equal "
+          f"to step 9's Lazy run ({served['primes_wall']:.3f} s; no host sync)", flush=True)
+
+    x = poly.fateman_poly(FATEMAN_POWER, FATEMAN_CAPACITY, CONFIG.poly_limbs_small,
+                          device="cuda")
+    got, wall = timed_on_card(lambda: poly.times(
+        x, x, evaluator=ranked, num_x_chunks=CONFIG.poly_x_chunks,
+        terms_per_cell=CONFIG.poly_terms_per_cell))
+    want = served["product"]
+    if not (torch.equal(got.keys, want.keys) and torch.equal(got.coeffs, want.coeffs)):
+        fail("14b fateman across 1 pod rank: the product differs from step 9's Lazy one")
+    print(f"14b fateman stream ({smi}): (1+x+y+z)^{FATEMAN_POWER} squared, "
+          f"{CONFIG.poly_limbs_small} limbs, across 1 pod rank {wall:.3f} s, bitwise step 9's "
+          f"Lazy product ({served['product_wall']:.3f} s; no host sync)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3585,7 +3718,8 @@ def main() -> int:
     run_prefill_end_to_end(cfg, params)
 
     # 5. The StreamEngine: decode rounds under the Lazy and Future evaluators
-    se_launches, stream_c = run_stream_engine_phase(cfg, params, smi, flash_tokens, hot[0])
+    se_launches, stream_c, b_launches = run_stream_engine_phase(cfg, params, smi, flash_tokens,
+                                                                hot[0])
 
     # 5b. Supervised serving: both engines under ServeSupervisor with chaos
     # faults, and the serve CLI
@@ -3635,7 +3769,7 @@ def main() -> int:
         launches[name] += sum(counts[op] for counts in zoo)
 
     # 9. The paper's Stream programs under the Lazy and Future evaluators on the card
-    run_stream_phase(smi)
+    product, product_wall, primes, primes_wall = run_stream_phase(smi)
 
     # 10. Training: full-width OLMo-1B, the trainer, fault replay and the
     # planned backward; no kernel launches
@@ -3643,8 +3777,14 @@ def main() -> int:
 
     # 12. The mesh layer on a one-rank NCCL group: collectives, the
     # elastic resume of step 10c's checkpoint, the dry run; 13, on the
-    # same group, the pipelined demo step
-    run_mesh_phase(smi)
+    # same group, the pipelined demo step; 14, the StreamEngine, the sieve
+    # and the product across its one-rank pod axis
+    ranked = run_mesh_phase(smi, dict(engine=flash_tokens, b=stream_c, b_launches=b_launches,
+                                      product=product, product_wall=product_wall,
+                                      primes=primes, primes_wall=primes_wall))
+    for name, op in (("decode_attention", "decode_attention"),
+                     ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention")):
+        launches[name] += ranked[op]
 
     source = {
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -99,7 +99,8 @@ def run_sieve(
     device: str | torch.device = "cuda",
 ):
     """All primes < ``limit``.  Returns (primes int32[num_slots], count),
-    both tensors on ``device``."""
+    both tensors on ``device``; across the ranks of a mesh, on every
+    rank."""
     stream = sieve_stream(
         limit,
         block_size=block_size,
@@ -107,12 +108,17 @@ def run_sieve(
         num_cells=num_cells,
         device=device,
     )
-    return sieve_result(stream.collect(evaluator))
+    return sieve_result(stream.collect(evaluator), evaluator)
 
 
-def sieve_result(result):
-    """(primes, count) from a collected sieve stream."""
-    primes = result.states[0].reshape(-1)
+def sieve_result(result, evaluator=None):
+    """(primes, count) from a collected sieve stream.  The primes are the
+    cells' states: a ``FutureEvaluator`` across ranks returns each rank's
+    own cells only, so they are gathered over its axis first."""
+    states = result.states
+    if getattr(evaluator, "mesh", None) is not None:
+        states = evaluator.gather_states(states)
+    primes = states[0].reshape(-1)
     count = (primes > 0).sum()
     return primes, count
 

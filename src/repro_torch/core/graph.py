@@ -1236,6 +1236,43 @@ def _chain_cell_machinery(chain: "ChainProgram"):
     )
 
 
+def row_runs(rows: list[int]) -> list[tuple[int, int]]:
+    """``(first, count)`` of each run of consecutive values of ``rows``
+    (ascending)."""
+    runs: list[list[int]] = []
+    for r in rows:
+        if runs and runs[-1][0] + runs[-1][1] == r:
+            runs[-1][1] += 1
+        else:
+            runs.append([r, 1])
+    return [(a, n) for a, n in runs]
+
+
+def take_rows(leaf: torch.Tensor, rows: list[int]) -> torch.Tensor:
+    """``leaf``'s rows ``rows`` (ascending): one slice, a view, where they
+    are consecutive, else the slices of each run joined -- never an index
+    tensor, so never a copy from the host."""
+    parts = [leaf[a:a + n] for a, n in row_runs(rows)]
+    if not parts:
+        return leaf[:0]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def split_rows(chain: "ChainProgram", rows: PyTree, cells: list[int]) -> tuple:
+    """Per-segment states of some of a chain's cells: ``rows`` stacks the
+    rows of :func:`_chain_cell_machinery`'s state at the chain cells
+    ``cells`` (ascending); each segment gets its rows among them, in
+    order (none where it has no cell there)."""
+    if len(chain.segments) == 1 and chain.segments[0].pre_fn is None:
+        return (rows,)
+    out, off = [], 0
+    for i, seg in enumerate(chain.segments):
+        mine = [j for j, c in enumerate(cells) if off <= c < off + seg.num_cells]
+        out.append(P.tree_map(lambda l, _j=mine: take_rows(l, _j), rows["parts"][i]))
+        off += seg.num_cells
+    return tuple(out)
+
+
 def run_chain_sequential(chain: "ChainProgram") -> tuple[tuple, PyTree]:
     """Execute a lowered :class:`ChainProgram` item-by-item on one device.
 

@@ -33,8 +33,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-import torch
-
 from repro_torch import pytree as P
 from repro_torch.core import chunking
 from repro_torch.core.graph import Stream
@@ -118,6 +116,7 @@ def pipeline_evaluator(
         interleave=config.interleave,
         backward=config.backward,
         mesh=mesh,
+        local_cells=mesh is not None,
         **kwargs,
     )
 
@@ -152,6 +151,9 @@ def pipeline_apply(
     if evaluator is None:
         evaluator = pipeline_evaluator(config, stages, mesh)
     ranked = getattr(evaluator, "mesh", None) is not None
+    if ranked and not evaluator.local_cells:
+        raise ValueError("pipeline_apply across ranks takes this rank's stages: its evaluator "
+                         "needs local_cells=True (pipeline_evaluator gives it)")
     stream = Stream.source(items).through(
         lambda params, xb: (params, stage_fn(params, xb)),
         stage_params,
@@ -169,16 +171,9 @@ def local_stages(stage_params: PyTree, config: PipelineConfig, mesh) -> PyTree:
     ``config.axis_name``: rank d's virtual stages ``v*D + d``, ``v <
     interleave``, back to back (for ``interleave`` 1, its contiguous
     share of the stage axis)."""
-    from repro_torch.parallel.sharding import mesh_axes
-
-    d_, v_ = mesh_axes(mesh)[config.axis_name], config.interleave
-    d = mesh.get_local_rank(config.axis_name)
-    if config.num_stages % (d_ * v_):
-        raise ValueError(f"num_stages={config.num_stages} does not split over {d_} ranks x "
-                         f"interleave {v_}")
-    c = config.num_stages // (d_ * v_)  # stages a virtual stage
-    cuts = [((v * d_ + d) * c, (v * d_ + d + 1) * c) for v in range(v_)]
-    return P.tree_map(lambda t: torch.cat([t[a:b] for a, b in cuts]), stage_params)
+    return FutureEvaluator(axis_name=config.axis_name, schedule=config.schedule,
+                           interleave=config.interleave, mesh=mesh,
+                           local_cells=True).local_rows(stage_params)
 
 
 def split_stages(layer_params: PyTree, num_layers: int, num_stages: int) -> PyTree:

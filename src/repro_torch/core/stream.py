@@ -236,7 +236,8 @@ class LazyEvaluator:
 
 
 class FutureEvaluator:
-    """Pipelined evaluation over ``num_stages`` stages of one device.
+    """Pipelined evaluation over ``num_stages`` stages of one device, or
+    over the ranks of a mesh axis (``mesh=``).
 
     The program (a :class:`Stream` or deprecated :class:`StreamProgram`)
     is lowered to a :class:`~repro_torch.core.graph.ChainProgram` -- a
@@ -293,11 +294,18 @@ class FutureEvaluator:
     **Across ranks** (``mesh=``, a ``DeviceMesh``): the stages are the
     ranks of the mesh axis ``axis_name``, as in the reference, and D is
     its size.  Every rank builds the same plan and runs only its own
-    virtual stages ``v * D + d``; the chain's state is this rank's cells
-    (its V groups back to back, the reference's device-major layout),
-    and a unit's output crosses to the next rank by p2p (see
-    :meth:`_run_chain_ranked`).  Every rank holds the source items, and
-    every rank gets the outputs (broadcast from the last rank).
+    virtual stages ``v * D + d``, and a unit's output crosses to the next
+    rank by p2p (see :meth:`_run_chain_ranked`); every chain the one-device
+    loop runs runs so: mutable and read-only state, zips, feedback.  Every
+    rank holds the source items, gets the outputs (broadcast from the
+    last rank) and returns its own cells' final states.  By default every
+    rank is given the whole chain, as the reference's evaluator is, and
+    keeps only its cells' rows (views); with ``local_cells=True`` the
+    chain a rank is given holds only its own cells, its V groups back to
+    back in the reference's device-major layout (:meth:`local_rows`
+    makes them: a decode cache shard, ``pipeline.local_stages``'s stage
+    params), so that no rank allocates another's.  :meth:`gather_states`
+    assembles the whole chain's states on every rank.
     """
 
     name = "future"
@@ -312,7 +320,10 @@ class FutureEvaluator:
         device: str | torch.device | None = None,
         time_units: bool = False,
         mesh=None,
+        local_cells: bool = False,
     ):
+        if local_cells and mesh is None:
+            raise ValueError("local_cells=True is a mode of the ranked evaluator: give a mesh")
         if mesh is not None:
             from repro_torch.parallel.sharding import mesh_axes
 
@@ -333,7 +344,10 @@ class FutureEvaluator:
         self.interleave = interleave
         self.device = None if device is None else resolve_device(device)
         self.time_units = time_units
+        self.local_cells = local_cells
         self._unit_events: list[tuple[int, int, Any, Any]] = []
+        # (segment sizes, cells a virtual stage, local_cells) of the last ranked run
+        self._ranked_layout: tuple | None = None
 
     def plan_for(
         self,
@@ -375,6 +389,72 @@ class FutureEvaluator:
                  for d, t, a, b in self._unit_events]
         t0 = min(u[2] for u in times)
         return [(d, t, a - t0, b - t0) for d, t, a, b in times]
+
+    # -- across ranks: this rank's rows, and the whole chain's ---------------
+
+    def _rank_cells(self, rank: int, per_group: int) -> list[int]:
+        """The chain cells of ``rank`` in device-major order: virtual
+        stages ``v * D + rank``, ``v < interleave``, back to back."""
+        d_ = self.num_stages
+        return [(v * d_ + rank) * per_group + i
+                for v in range(self.interleave) for i in range(per_group)]
+
+    def local_rows(self, tree: PyTree) -> PyTree:
+        """This rank's rows of ``tree`` (leaves stacked over a chain's
+        cells) for a ``local_cells`` chain: its V groups back to back, a
+        view for ``interleave`` 1 (one slice), a copy otherwise."""
+        d_, v_ = self.num_stages, self.interleave
+        d = self.mesh.get_local_rank(self.axis_name)
+
+        def rows(leaf):
+            if leaf.shape[0] % (d_ * v_):
+                raise ValueError(f"{leaf.shape[0]} cells do not split over {d_} ranks x "
+                                 f"interleave {v_}")
+            c = leaf.shape[0] // (d_ * v_)
+            parts = [leaf[(v * d_ + d) * c:(v * d_ + d + 1) * c] for v in range(v_)]
+            return parts[0] if v_ == 1 else torch.cat(parts)
+
+        return P.tree_map(rows, tree)
+
+    def gather_states(self, states: tuple) -> tuple:
+        """The whole chain's final states (one per segment) on every rank,
+        from the rows of its own cells each rank's last run returned: an
+        all-gather over the axis.  Off a mesh, ``states`` itself."""
+        if self.mesh is None:
+            return states
+        import torch.distributed as dist
+
+        if self._ranked_layout is None:
+            raise ValueError("gather_states follows a run of this evaluator across ranks")
+        sizes, c, local = self._ranked_layout
+        d_ = self.num_stages
+        if local:
+            if len(sizes) != 1:
+                raise ValueError("gather_states takes a local_cells chain of one segment")
+            sizes = [sizes[0] * d_]
+        group = axis_group(self.axis_name, self.mesh)
+        out, off = [], 0
+        for n, state in zip(sizes, states):
+            idx = [[g - off for g in self._rank_cells(r, c) if off <= g < off + n]
+                   for r in range(d_)]
+            k = max(len(i) for i in idx)
+
+            def whole(leaf, idx=idx, k=k, n=n):
+                pad = leaf.new_zeros((k,) + tuple(leaf.shape[1:]))
+                pad[: leaf.shape[0]] = leaf
+                bufs = [torch.empty_like(pad) for _ in range(d_)]
+                dist.all_gather(bufs, pad, group=group)
+                full = leaf.new_empty((n,) + tuple(leaf.shape[1:]))
+                for r in range(d_):  # slices, no index tensor: no host copy
+                    at = 0
+                    for a, count in G.row_runs(idx[r]):
+                        full[a:a + count] = bufs[r][at:at + count]
+                        at += count
+                return full
+
+            out.append(P.tree_map(whole, state))
+            off += n
+        return tuple(out)
 
     # -- chain execution ---------------------------------------------------
 
@@ -684,93 +764,186 @@ class FutureEvaluator:
         (it matches by order; gloo by the tags, one for each
         ``(virtual stage, item, direction)``).  A received value is
         forced at the tick that consumes it, two or more ticks later (the
-        plan's hand-off of 2).  A hop carries each leaf's local shard,
-        laid out as the source item's leaf is (a DTensor unit output is
-        redistributed to that layout first, inside the unit's graph).
-        On an axis of size 1 a hop is the value itself.
+        plan's hand-off of 2).  A hop carries each leaf of the flowing
+        item (its local shard, laid out as the first item's leaf is: a
+        DTensor unit output is redistributed to that layout first,
+        inside the unit's graph).  On an axis of size 1 a hop is the
+        value itself.
 
-        The outputs of the last virtual stage are broadcast from the last
-        rank, so every rank returns them.  The backward is one autograd
-        node over the whole run (:class:`_Ranked`): its B units run in
-        tick order, never in the autograd engine's, each cotangent
-        crossing to rank d-1 in the same per-tick batches -- under
-        ``"autodiff"`` the forward plan's units in reverse tick order on
-        the graphs the forward recorded, under ``"planned"``
-        :func:`~repro_torch.core.schedules.build_backward_plan`'s units
-        recomputed from the stashed inputs.  Weight gradients are summed
-        per virtual stage with the item descending, as on one device, so
-        both are bitwise the Lazy evaluator's.  The ranks compute the same
-        function of the broadcast outputs (a loss replicated over the
-        axis): the last rank's cotangent of the outputs seeds the
-        backward, and the source items' gradient is broadcast from rank
-        0, which runs virtual stage 0.
+        Every chain the one-device loop runs runs here, from one plan
+        (the zips' positions and the feedback lag in it):
 
-        One source, immutable cell state without ``const_state``, no
-        feedback: the training shape of :func:`~repro_torch.core.
-        pipeline.pipeline_apply`.
+        * mutable cell state: a unit advances this rank's rows of its
+          virtual stage in place (:func:`~repro_torch.core.graph.
+          scan_cells`); an idle tick runs no cell and writes nothing, and
+          no tick copies a state;
+        * ``const_state``: this rank's rows, read per cell, never part of
+          a hop or a write-back;
+        * sources: every rank holds every source.  An entry zip merges
+          where virtual stage 0 runs (rank 0), an interior zip on the
+          rank that owns its virtual stage (the plan's
+          ``inject_devices``), at the ticks the plan consumes it; under
+          feedback the entry zips gate on that column too, so that they
+          overlay fed-back items.  Tail zips and ``finalize`` apply after
+          the loop, on every rank;
+        * feedback: ``emit`` runs on the rank of the last virtual stage,
+          at the plan's ``emit`` ticks; the emitted item is collected
+          there and crosses to rank 0 as the entry input of item
+          ``m + lag``, in the same per-tick batch as every forward hop.
+
+        The outputs are broadcast from the last rank, so every rank
+        returns them; each rank returns its own cells' final states (per
+        segment, in cell order).
+
+        The backward is one autograd node over the whole run
+        (:class:`_Ranked`): its B units run in tick order, never in the
+        autograd engine's, each cotangent crossing to rank d-1 in the
+        same per-tick batches -- under ``"autodiff"`` the forward plan's
+        units in reverse tick order on the graphs the forward recorded,
+        under ``"planned"`` :func:`~repro_torch.core.schedules.
+        build_backward_plan`'s units recomputed from the stashed inputs.
+        Weight gradients are summed per virtual stage with the item
+        descending, as on one device, so both are bitwise the Lazy
+        evaluator's.  The ranks compute the same function of the
+        broadcast outputs (a loss replicated over the axis): the last
+        rank's cotangent of the outputs seeds the backward, and the
+        source items' gradient is broadcast from rank 0, which runs
+        virtual stage 0.  Its scope is the training shape of
+        :func:`~repro_torch.core.pipeline.pipeline_apply`: a
+        ``local_cells`` chain of one source, immutable cell state, no
+        ``const_state``, no feedback; autograd through any other chain
+        across ranks raises ``ValueError``.
         """
-        if chain.feedback is not None or len(chain.injections) != 1:
-            raise ValueError(
-                "a FutureEvaluator across ranks runs single-source chains without feedback "
-                "(the training shape: one stream of microbatches)"
-            )
-        machinery = G._chain_cell_machinery(chain)
-        _, init_state, const_state, mutable, split_states = machinery
-        if mutable or const_state is not None:
-            raise ValueError(
-                "a FutureEvaluator across ranks needs immutable cell state "
-                "(mutable_state=False) without const_state: each rank holds its own stages"
-            )
-        if chain.num_cells == 0 or chain.num_cells % self.interleave:
-            raise ValueError(
-                f"this rank's num_cells={chain.num_cells} must be a positive multiple of "
-                f"interleave {self.interleave} (its {self.interleave} virtual stages)"
-            )
-        src = chain.injections[0].materialize()
-        G.leading_axis_size(src, "items")
-        run = _RankRun(self, chain, machinery, src)
-        s_leaves = P.leaves(init_state)
-        x_leaves = P.leaves(src)
-        if torch.is_grad_enabled() and any(
-                isinstance(t, torch.Tensor) and t.requires_grad for t in s_leaves + x_leaves):
-            outs = P.unflatten(run.out_def, _Ranked.apply(run, *s_leaves, *x_leaves))
+        if chain.num_cells == 0:  # data plumbing, the same on every rank
+            return self._run_chain(chain)
+        run = _RankRun(self, chain, G._chain_cell_machinery(chain))
+        if run.needs_grad():
+            run.check_backward_scope()
+            outs = P.unflatten(run.out_def, _Ranked.apply(run, *run.s_leaves, *run.x_leaves))
         else:
             outs = P.unflatten(run.out_def, run.forward())
+        for inj in run.tail:
+            outs = G.apply_per_item(
+                lambda ab, _c=inj.combine: _c(*ab), (outs, inj.materialize())
+            )
         if chain.finalize is not None:
             outs = G.apply_per_item(chain.finalize, outs)
-        return split_states(init_state), outs
+        return run.final_states(), outs
 
 
 class _RankRun:
     """One run of the pipeline across ranks (:meth:`FutureEvaluator.
-    _run_chain_ranked`): this rank's units, the hops, and what the
-    backward needs from the forward."""
+    _run_chain_ranked`): this rank's rows and units, the hops, and what
+    the backward needs from the forward."""
 
-    def __init__(self, ev: FutureEvaluator, chain: G.ChainProgram, machinery, src):
-        self.ev, self.src = ev, src
-        self.d_, self.v_, self.m_ = ev.num_stages, ev.interleave, chain.num_items
-        self.per_group = chain.num_cells // self.v_
-        self.cell_fn, self.init_state = machinery[0], machinery[1]
+    def __init__(self, ev: FutureEvaluator, chain: G.ChainProgram, machinery):
+        self.ev, self.chain = ev, chain
+        d_, v_ = ev.num_stages, ev.interleave
+        self.d_, self.v_, self.m_ = d_, v_, chain.num_items
+        self.fb = chain.feedback
+        (self.cell_fn, self.init_state, self.const_state, self.mutable,
+         self.split_states) = machinery
+        self.local = ev.local_cells
         self.group = axis_group(ev.axis_name, ev.mesh)
         _, self.rank, self.next, self.prev = ring_peers(self.group)
-        self.plan = ev.plan_for(self.m_)
-        self.template, self.out_def = P.flatten(P.tree_map(lambda x: x[0], src))
+
+        if self.local and chain.num_cells % v_:
+            raise ValueError(f"this rank's num_cells={chain.num_cells} must be a multiple of "
+                             f"interleave {v_} (its {v_} virtual stages)")
+        if not self.local and chain.num_cells % (d_ * v_):
+            raise ValueError(f"num_cells={chain.num_cells} not divisible by axis "
+                             f"'{ev.axis_name}' size {d_} x interleave {v_}")
+        c = chain.num_cells // (v_ if self.local else d_ * v_)  # cells a virtual stage
+
+        # The zips: every one on a virtual-stage boundary, post-pipeline
+        # merges after the loop.  A chain of this rank's cells names no
+        # other rank's boundary, so it takes zips at its entry only.
+        pipelined, self.tail, positions = [], [], []
+        for inj in chain.injections:
+            if inj.cell_index >= chain.num_cells and inj.combine is not None:
+                self.tail.append(inj)
+            elif self.local and inj.cell_index != 0:
+                raise ValueError(
+                    "a local_cells chain holds only this rank's cells, so it takes zips at its "
+                    "entry or after its last cell; give every rank the whole chain for an "
+                    "interior zip")
+            elif inj.cell_index % c:
+                raise ValueError(
+                    f"zip injection at cell {inj.cell_index} does not fall on a virtual-stage "
+                    f"boundary (cells_per_group={c}, D={d_}, V={v_}); move the zip or change "
+                    f"the stage split")
+            else:
+                pipelined.append(inj)
+                positions.append(inj.cell_index // c)
+        self.plan = ev.plan_for(self.m_, tuple(positions),
+                                feedback_lag=self.fb.lag if self.fb else None)
+        self.sources = [inj.materialize() for inj in pipelined]
+        for s, src in enumerate(self.sources):
+            G.leading_axis_size(src, f"source {s} items")
+        self.combines = [inj.combine for inj in pipelined]
+        self.entry = [s for s in range(1, len(self.sources)) if positions[s] == 0]
+        self.interior = [s for s in range(1, len(self.sources)) if positions[s] != 0]
+
+        # This rank's rows of each of its virtual stages: views.
+        d = self.rank
+        self.cells = ev._rank_cells(d, c)
+        starts = [v * c for v in range(v_)] if self.local else self.cells[::c]
+        self.rows_in = [P.tree_map(lambda l, a=a: l[a:a + c], self.init_state) for a in starts]
+        self.consts = [P.tree_map(lambda l, a=a: l[a:a + c], self.const_state) for a in starts]
+        self.rows = list(self.rows_in)
+        ev._ranked_layout = (tuple(s.num_cells for s in chain.segments), c, self.local)
+
+        # The flowing item: what the entry zips make of a source item
+        # (under feedback they must keep the primary item's structure).
+        first = self._item(0, 0)
+        if self.fb is None:
+            for s in self.entry:
+                first = self.combines[s](first, self._item(s, 0))
+        self.template, self.out_def = P.flatten(first)
         self.s_leaves, self.s_def = P.flatten(self.init_state)
-        self.x_leaves, self.x_def = P.flatten(src)
+        self.x_leaves, self.x_def = P.flatten(self.sources[0])
         self.units: dict = {}  # (p, m) -> what the unit's backward reads
         self.sends: list = []  # the batches in flight and the tensors they send
+
+    def _item(self, s: int, m: int) -> PyTree:
+        return P.tree_map(lambda x: x[m], self.sources[s])
+
+    def needs_grad(self) -> bool:
+        """Whether autograd records the run: grad mode on and a state,
+        const or source leaf that requires grad."""
+        leaves = P.leaves((self.init_state, self.const_state, self.sources))
+        return torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in leaves)
+
+    def check_backward_scope(self) -> None:
+        if not (self.local and len(self.sources) == 1 and not self.tail and self.fb is None
+                and not self.mutable and self.const_state is None):
+            raise ValueError(
+                "autograd through a FutureEvaluator across ranks runs local_cells chains of "
+                "one source with immutable cell state (mutable_state=False), no const_state "
+                "and no feedback (the training shape: one stream of microbatches, each rank "
+                "its own stages); run this chain under torch.no_grad() or with the "
+                "LazyEvaluator")
+
+    def final_states(self) -> tuple:
+        """This rank's cells' final states, one per segment."""
+        if self.local:
+            return self.split_states(G.join_parts(self.init_state, self.rows_in, self.rows))
+        mine = P.tree_map(lambda *parts: parts[0] if len(parts) == 1 else torch.cat(parts),
+                          *self.rows)
+        return G.split_rows(self.chain, mine, self.cells)
 
     # -- hops --------------------------------------------------------------
 
     def _layout(self, tree) -> PyTree:
-        """``tree``'s leaves laid out as the source item's (a DTensor
+        """``tree``'s leaves laid out as the flowing item's (a DTensor
         redistributed to the item leaf's placements, a partial sum
         reduced; autograd-aware)."""
         from repro_torch.parallel.sharding import is_dtensor
 
         leaves = P.leaves(tree)
         if len(leaves) != len(self.template):
-            raise ValueError("a unit's output must have the source item's structure")
+            raise ValueError("a unit's output must have the flowing item's structure")
         return P.unflatten(self.out_def, [
             x.redistribute(t.device_mesh, t.placements)
             if is_dtensor(x) and tuple(x.placements) != tuple(t.placements) else x
@@ -814,32 +987,33 @@ class _RankRun:
 
     def _broadcast(self, values: list, owner: int) -> list:
         """Every item of ``values`` (given on axis index ``owner``, None
-        elsewhere) on every rank, laid out as the source item."""
+        elsewhere) on every rank, laid out as the flowing item: one
+        broadcast a leaf, of the items stacked."""
         import torch.distributed as dist
 
         if self.d_ == 1:
             return values
         src = dist.get_global_rank(self.group, owner)
-        out = []
-        for value in values:
-            if self.rank == owner:
-                value = self._layout(value)
-                locs = [to_local(x).detach().contiguous() for x in P.leaves(value)]
-            else:
-                locs = [torch.empty_like(to_local(t)) for t in self.template]
-            for t in locs:
-                dist.broadcast(t, src=src, group=self.group)
-            out.append(value if self.rank == owner else self._received(locs))
-        return out
+        if self.rank == owner:
+            values = [self._layout(v) for v in values]
+            cols = [torch.stack([to_local(x).detach() for x in col])
+                    for col in zip(*[P.leaves(v) for v in values])]
+        else:
+            cols = [torch.empty((len(values),) + tuple(to_local(t).shape),
+                                dtype=t.dtype, device=to_local(t).device) for t in self.template]
+        for col in cols:
+            dist.broadcast(col, src=src, group=self.group)
+        if self.rank == owner:
+            return values
+        return [self._received([col[i] for col in cols]) for i in range(len(values))]
 
     # -- forward -------------------------------------------------------------
 
     def _rows(self, v: int, grad: list[bool]) -> list:
         """Virtual stage ``v``'s state rows, as leaves of their own where
         ``grad`` asks for their gradient."""
-        a, b = v * self.per_group, (v + 1) * self.per_group
-        return [leaf[a:b].detach().requires_grad_(True) if g else leaf[a:b]
-                for leaf, g in zip(self.s_leaves, grad)]
+        return [leaf.detach().requires_grad_(True) if g else leaf
+                for leaf, g in zip(P.leaves(self.rows_in[v]), grad)]
 
     def _apply(self, m: int, inp, rows) -> PyTree:
         out, _ = G.scan_cells(self.cell_fn, False, inp, None,
@@ -856,13 +1030,48 @@ class _RankRun:
             dist.all_reduce(torch.zeros(1, device=to_local(self.template[0]).device),
                             group=self.group)
 
+    def _next(self, p: int, m: int):
+        """The unit that reads what unit ``(p, m)`` makes: the next
+        virtual stage's, or under feedback, from the last virtual stage,
+        stage 0's of item ``m + lag``; None for an output that goes no
+        further."""
+        if p < self.d_ * self.v_ - 1:
+            return (p + 1, m)
+        if self.fb is not None and m + self.fb.lag < self.m_:
+            return (0, m + self.fb.lag)
+        return None
+
+    def _input(self, t: int, p: int, m: int, got: dict) -> PyTree:
+        """Unit ``(p, m)``'s input at tick ``t``: a fresh item of the
+        primary source (merged with the entry zips' items), or what the
+        previous unit handed over; then merged with the zips the plan
+        consumes here."""
+        plan, d = self.plan, self.rank
+        if plan.read_slot[t, d] < 0:
+            inp = self._item(0, m)
+            if self.fb is None:
+                for s in self.entry:
+                    inp = self.combines[s](inp, self._item(s, m))
+        else:
+            inp = got.pop((p, m)).force()
+        for s in (self.entry if self.fb is not None else []) + self.interior:
+            if plan.src_consume[s, t] and d == plan.inject_devices[s]:
+                merged = self.combines[s](inp, self._item(s, m))
+                if (self.fb is not None and s in self.entry
+                        and not G.structures_match(inp, merged)):
+                    raise ValueError(
+                        "entry zips on a feedback chain must preserve the primary item "
+                        "structure (the fed-back item re-enters through the same combines)")
+                inp = merged
+        return inp
+
     def forward(self, record: str | None = None) -> list:
         """The F units in tick order; returns the outputs' leaves (every
-        item of the last virtual stage, broadcast).  ``record``:
-        ``"graph"`` keeps each unit's graph, ``"stash"`` its input."""
+        collected item, broadcast from the last rank).  ``record``
+        (the backward's scope only): ``"graph"`` keeps each unit's graph,
+        ``"stash"`` its input."""
         self._join()
         d, d_, plan = self.rank, self.d_, self.plan
-        last = d_ * self.v_ - 1
         want_w = [t.requires_grad and t.is_floating_point() for t in self.s_leaves]
         want_x = any(t.requires_grad for t in self.x_leaves)
         got: dict = {}
@@ -870,11 +1079,10 @@ class _RankRun:
         for t in range(plan.num_ticks):
             sends, recvs = [], []
             m = int(plan.microbatch[t, d])
-            if m >= 0:
+            if m >= 0:  # an idle tick runs no cell and writes nothing
                 v = int(plan.group[t, d])
                 p = v * d_ + d
-                inp = (P.tree_map(lambda x: x[m], self.src) if p == 0
-                       else got.pop((p, m)).force())
+                inp = self._input(t, p, m, got)
                 if record == "graph":
                     rows = self._rows(v, want_w)
                     xs = [x.detach().requires_grad_(p > 0 or want_x) for x in P.leaves(inp)]
@@ -882,22 +1090,32 @@ class _RankRun:
                         out = self._apply(m, P.unflatten(self.x_def, xs), rows)
                     self.units[p, m] = (out, rows, xs)
                     out = P.tree_map(lambda x: x.detach(), out)
-                else:
-                    if record == "stash":
-                        self.units[p, m] = inp
+                elif record == "stash":
+                    self.units[p, m] = inp
                     out = self._apply(m, inp, self._rows(v, [False] * len(want_w)))
-                if p == last:
-                    outs[m] = out
                 else:
-                    sends.append(((p + 1, m), out))
+                    out, self.rows[v] = G.scan_cells(
+                        self.cell_fn, self.mutable, inp, self.consts[v], self.rows[v], item=m)
+                    out = self._layout(out)
+                if self.fb is not None and plan.emit[t, d]:
+                    emitted = self.fb.emit(out)
+                    G._check_emit_structure(out, emitted)
+                    out = emitted
+                if plan.collect[t, d]:
+                    outs[m] = out
+                key = self._next(p, m)
+                if key is not None:
+                    sends.append((key, out))
             # what rank d-1 makes at this tick for a unit of this rank
             dp = (d - 1) % d_
             mp = int(plan.microbatch[t, dp])
-            if mp >= 0 and int(plan.group[t, dp]) * d_ + dp < last:
-                recvs.append((int(plan.group[t, dp]) * d_ + dp + 1, mp))
+            if mp >= 0:
+                key = self._next(int(plan.group[t, dp]) * d_ + dp, mp)
+                if key is not None:
+                    recvs.append(key)
             self._hop(sends, recvs, got, backward=False)
         self._drain()
-        owner = last % d_
+        owner = (d_ * self.v_ - 1) % d_
         outs = self._broadcast(outs if d == owner else [None] * self.m_, owner)
         return P.leaves(G._stack(outs))
 

@@ -31,6 +31,14 @@ CUDA kernels on a card, the plain PyTorch ops on the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama-3.2-vision-90b --smoke --device cpu --requests 4
 
+    # the same decode across the GPUs of a host: one rank a card, the
+    # 8 cells split over the 4 ranks of a one-axis "pod" mesh (NCCL;
+    # with --device cpu, gloo); --devices must be the world size, and
+    # rank 0 prints
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch olmo-1b \\
+        --engine stream --devices 4 --cells 8 --microbatches 4 \\
+        --max-batch 8 --max-len 1024 --prefill-chunk 128 --kernels cuda
+
 ``main(argv)`` returns the finished requests.  An embedding-input arch
 (musicgen-medium) exits with a message, as the reference's CLI does: it
 needs the embedding frontend stub.
@@ -38,6 +46,8 @@ needs the embedding frontend stub.
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import signal
 import time
 
@@ -91,7 +101,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--devices", type=int, default=0,
                     help="pipeline stages for --engine stream, each a CUDA "
                     "stream of the card (0 or 1 = LazyEvaluator, "
-                    "layer-sequential)")
+                    "layer-sequential); under a torch.distributed process "
+                    "group (torchrun) the ranks of the world, one a stage")
     ap.add_argument("--num-layers", type=int, default=0,
                     help="override layer count (smoke configs have only "
                     "2 groups — deepen them so --cells can split)")
@@ -130,9 +141,67 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+# How long a rank waits on the others before its collective fails (a
+# rank that died fails the world; it never hangs it).
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def _world(args):
+    """``(rank, world size, made)`` of the process group the CLI serves
+    across -- the caller's, or one it makes from torchrun's ``env://``
+    variables (``made``) -- or None without one.  NCCL on
+    ``cuda:LOCAL_RANK``, gloo with ``--device cpu``."""
+    import torch
+    import torch.distributed as dist
+
+    made = False
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return None
+        if args.device != "cpu":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl",
+                                init_method="env://", timeout=GROUP_TIMEOUT)
+        made = True
+    if dist.get_world_size() <= 1:
+        return None
+    return dist.get_rank(), dist.get_world_size(), made
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
+    world = _world(args)
+    if world is None:
+        return _serve(args, None, print)
+    rank, size, made = world
+    try:
+        if args.engine != "stream" or args.devices != size:
+            raise SystemExit(f"under a process group of {size} ranks the CLI serves "
+                             f"--engine stream --devices {size} across them")
+        if args.chaos or args.watchdog_ms:
+            raise SystemExit("the supervisor (--chaos, --watchdog-ms) serves one card, "
+                             "not across ranks")
+        from repro_torch.launch.mesh import make_mesh
 
+        if args.device != "cpu":
+            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        # the StreamEngine's cells split over a one-axis pod mesh of the
+        # world, each rank on its own device; rank 0 prints
+        return _serve(args, make_mesh((size,), ("pod",)), print if rank == 0 else _quiet)
+    finally:
+        if made:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
+
+
+def _serve(args, mesh, say):
+    """Serve ``args``'s workload (a StreamEngine across the ranks of
+    ``mesh`` where one is given), printing through ``say``."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -144,7 +213,7 @@ def main(argv=None):
                          "use a token arch for the serving example")
     layout = T.model_layout(cfg)
     params = init_params(layout, seed=args.seed, device=args.device)
-    print(f"arch={cfg.name} params={param_count(layout)/1e6:.1f}M device={args.device}")
+    say(f"arch={cfg.name} params={param_count(layout)/1e6:.1f}M device={args.device}")
 
     scfg = ServeConfig(
         max_batch=args.max_batch, max_len=args.max_len,
@@ -160,7 +229,7 @@ def main(argv=None):
             round_steps=args.round_steps, admit_per_round=args.admit_per_round,
         )
         if args.suggest_schedule and ndev <= 1:
-            print(
+            say(
                 "suggest-schedule: skipped — needs > 1 pipeline stage "
                 "(set --devices); there is no (schedule, M, V) choice on "
                 "one stage"
@@ -178,7 +247,7 @@ def main(argv=None):
             slab_b = decode_copy_bytes_per_tick(
                 cfg, mb, args.cells, row_scatter=False, max_len=args.max_len
             )
-            print(
+            say(
                 f"cost-model pick (ASSUMING work/item={args.model_work}s, "
                 f"tick overhead={args.model_overhead}s, "
                 f"{args.model_copy_gbps:.0f} GB/s — override with "
@@ -188,13 +257,15 @@ def main(argv=None):
                 f"the slab scheme"
             )
         eng = StreamEngine(params, cfg, scfg, pcfg,
-                           stages=ndev if ndev > 1 else None, device=args.device)
-        mode = (f"stream/{args.schedule}xV{args.interleave} D={ndev} "
+                           stages=ndev if ndev > 1 and mesh is None else None,
+                           device=args.device, mesh=mesh)
+        mode = (f"stream/{args.schedule}xV{args.interleave} D={ndev}"
+                f"{' ranks' if mesh is not None else ''} "
                 f"S={args.cells} M={args.microbatches} T={args.round_steps} "
                 f"kernels={eng.kernels}")
     else:
         if args.suggest_schedule:
-            print(
+            say(
                 "suggest-schedule: skipped — the cost model picks a "
                 "pipeline (schedule, M, V); run with --engine stream"
             )
@@ -243,14 +314,14 @@ def main(argv=None):
         signal.signal(signal.SIGTERM, prev_sigterm)
     total_new = sum(len(r.out_tokens) for r in done)
     expired = sum(r.status == "expired" for r in done)
-    print(f"[{mode}] {len(done)} requests, {total_new} tokens in {wall:.2f}s "
+    say(f"[{mode}] {len(done)} requests, {total_new} tokens in {wall:.2f}s "
           f"({total_new/wall:.1f} tok/s with continuous batching)")
     if shed or expired:
-        print(f"  load_shed={shed} expired={expired}")
+        say(f"  load_shed={shed} expired={expired}")
     if sup is not None:
-        print(f"  supervisor: {sup.stats}")
+        say(f"  supervisor: {sup.stats}")
     for r in done[:4]:
-        print(f"  req {r.uid}: {r.out_tokens}")
+        say(f"  req {r.uid}: {r.out_tokens}")
     return done
 
 

@@ -520,6 +520,17 @@ class StreamEngine(_EngineBase):
     over D stages with ``pcfg``'s schedule, interleave and axis name, on
     CUDA streams of ``device``.  Runs on ``device`` (CUDA unless the
     caller passes ``device="cpu"``), where ``params`` must lie.
+
+    ``mesh`` (a ``DeviceMesh``, the reference's argument; exclusive with
+    ``stages``) runs the round across the ranks of its axis
+    ``pcfg.axis_name`` (``FutureEvaluator(mesh=)``): each rank holds the
+    full params (prefill runs the whole model, as the reference's does
+    outside its pipelined region) but keeps only its own cells' cache
+    shards, layer consts and admission payload rows; the emit runs on the
+    last rank only.  Every rank runs this host loop on the same
+    submissions (SPMD): admissions, prefills and the overlay agree on
+    every rank, and the collected items are broadcast from the last rank,
+    so the slot state does too.  :attr:`cache` is this rank's cells.
     """
 
     def __init__(
@@ -530,7 +541,10 @@ class StreamEngine(_EngineBase):
         pcfg: DecodePipelineConfig | None = None,
         stages: int | None = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
+        if stages is not None and mesh is not None:
+            raise ValueError("give stages (CUDA streams of one card) or mesh (ranks), not both")
         super().__init__(params, cfg, scfg, device)
         pcfg = pcfg or DecodePipelineConfig()
         self.pcfg = pcfg
@@ -550,19 +564,25 @@ class StreamEngine(_EngineBase):
             raise ValueError(
                 f"{groups} layer groups not divisible by num_cells={pcfg.num_cells}"
             )
-        if stages is None:
+        self.mesh = mesh
+        if stages is None and mesh is None:
             self.evaluator = LazyEvaluator()
         else:
             self.evaluator = FutureEvaluator(
                 stages, pcfg.axis_name, schedule=pcfg.schedule,
-                interleave=pcfg.interleave, device=self.device,
+                interleave=pcfg.interleave, device=self.device, mesh=mesh,
+                local_cells=mesh is not None,
             )
         # Read-only/mutable split, as views: layer params ride the
         # Stream's const_state, each cell's cache shard is its state.
-        self.cell_consts, self.cell_states = T.split_decode_cells(
-            params, T.init_cache(cfg, scfg.max_batch, scfg.max_len, self.device),
-            pcfg.num_cells,
-        )
+        # Across ranks only this rank's cells: its shards are allocated
+        # from the cache's layout, and its consts are rows of the params.
+        consts, cache = T.split_decode_cells(
+            params, T.cache_layout(cfg, scfg.max_batch, scfg.max_len), pcfg.num_cells)
+        if mesh is not None:
+            consts, cache = self.evaluator.local_rows((consts, cache))
+        self.cell_consts = consts
+        self.cell_states = P.tree_map(lambda t: torch.zeros_like(t, device=self.device), cache)
         # The pipeline knob overrides the model's, resolved once so that
         # cells and emit agree.
         self.kernels = resolve_mode(
@@ -584,7 +604,8 @@ class StreamEngine(_EngineBase):
 
     @property
     def cache(self) -> PyTree:
-        """The batch cache: a view of the per-cell shards."""
+        """The batch cache: a view of the per-cell shards (across ranks,
+        of this rank's cells)."""
         return T.merge_decode_caches(self.cell_states)
 
     def _round(self, cell_consts, cell_states, init_items, overlay):
@@ -699,6 +720,8 @@ class StreamEngine(_EngineBase):
             steps.append(step)
             mbs.append(mb)
         adm = T.stack_admission_payload(singles, slots, steps, mbs, pcfg.num_cells)
+        if self.mesh is not None:
+            adm = self.evaluator.local_rows(adm)
         overlay = {k: torch.as_tensor(v, device=dev) for k, v in ov.items()}
         # Embed only the gated rows (at most admit_per_round of them);
         # every other row of the overlay is a zero the combine discards.

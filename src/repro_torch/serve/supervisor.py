@@ -153,6 +153,11 @@ class ServeSupervisor:
         fail_injector: Callable | None = None,
         on_event: Callable[[dict], None] | None = None,
     ):
+        if getattr(engine, "mesh", None) is not None:
+            # a replay across ranks needs every rank to fault, restore and
+            # replay together: not built yet
+            raise ValueError("ServeSupervisor supervises an engine on one card; a "
+                             "StreamEngine across ranks (mesh=) is not supervised")
         self.engine = engine
         self.cfg = cfg or SupervisorConfig()
         self.fail_injector = fail_injector

@@ -63,6 +63,8 @@ def test_source_scan_finds_no_jax_or_repro_import():
                                          ROOT / "scripts" / "profile_train.py",
                                          ROOT / "scripts" / "time_engine.py",
                                          ROOT / "scripts" / "engine_tokens.py",
+                                         ROOT / "scripts" / "pipeline_ranks.py",
+                                         ROOT / "scripts" / "serve_ranks.py",
                                          *sorted((ROOT / "examples").glob("torch_*.py"))]
     assert len(files) > 15 and PKG / "models" / "ssm.py" in files
     assert PKG / "roofline" / "trace.py" in files
