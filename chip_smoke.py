@@ -177,9 +177,14 @@
    guard: 4 cells and 1 microbatch, the greedy flash Engine's tokens; 8
    cells and 4 microbatches of 2 under gpipe and under interleaved (2
    virtual stages), run b's tokens and b's decode-attention, emit and
-   flash launches; b, the sieve at limit 5000 (669 primes) and the
-   4-limb Fateman product across the axis, each bitwise step 9's Lazy
-   run.  About 50 s.
+   flash launches; c, the 4-cell, 1-microbatch run under
+   ``ServeSupervisor`` (every attempt agreed over the NCCL group):
+   fault-free with the snapshot's cost beside step 5b's, then raise@2,
+   nan@3, wedge@1 and sigterm@4, each with 0 requests lost, the greedy
+   flash Engine's tokens and launches equal to the calls made, replays
+   included; b, the sieve at limit 5000 (669 primes) and the 4-limb
+   Fateman product across the axis, each bitwise step 9's Lazy run.
+   About 75 s.
 
 Step 3 also serves OLMo-1B with ``"flash"`` at temperature 0.9 (seed
 11), twice: the two runs must give the same tokens (the sampling key is
@@ -1536,10 +1541,11 @@ def supervised_run(eng, prompts, label, *, fault=None, cfg=None, spent=None, wra
     return sup, [r.out_tokens for r in reqs], launches
 
 
-def print_supervisor_times(label, spent, nbytes, smi) -> None:
+def print_supervisor_times(label, spent, nbytes, smi) -> dict:
     """The supervisor's costs per round, from :func:`instrument_supervisor`
     (the first snapshot also allocates the supervisor's pinned buffers,
-    so it is reported apart)."""
+    so it is reported apart).  Returns the snapshot's bytes, p50 (ms) and
+    share of the supervised rounds' time."""
     snap, scan, step = spent["_snapshot"], spent["_check_numerics"], spent["step"]
     rest = snap[1:] or snap
     print(f"supervised {label} ({smi}): {len(step)} rounds, round p50 "
@@ -1551,6 +1557,8 @@ def print_supervisor_times(label, spent, nbytes, smi) -> None:
           f"{statistics.median(scan) * 1e3:.3f} ms, max {max(scan) * 1e3:.3f} ms; the snapshots "
           f"and scans raised the device's peak memory by at most {max(spent['rise'])} bytes "
           f"(allowed {SUPERVISOR_PEAK_BYTES})", flush=True)
+    return {"bytes": nbytes, "p50_ms": statistics.median(rest) * 1e3,
+            "share": sum(snap) / sum(step)}
 
 
 def restore_times(spent) -> str:
@@ -1612,7 +1620,7 @@ def run_supervised_engine(cfg, params, smi, want) -> dict:
     return total
 
 
-def run_supervised_stream(cfg, params, smi, want) -> dict:
+def run_supervised_stream(cfg, params, smi, want) -> tuple[dict, float, dict]:
     """StreamEngine run c's program (Future, gpipe, 4 stage streams, 8
     cells, 4 microbatches) under the supervisor: fault-free, each fault of
     :data:`STREAM_CHAOS` (the watchdog at 3x the slowest fault-free round,
@@ -1623,7 +1631,8 @@ def run_supervised_stream(cfg, params, smi, want) -> dict:
     loses no request and gives ``want`` (run c's tokens); its launches
     are 2 decode attentions a cell call (2 layers a cell), 1 emit an
     emitted item and 16 flash attentions a prefill call, counted from the
-    calls it made, replays included.  Returns the summed launch counts."""
+    calls it made, replays included.  Returns the summed launch counts,
+    the watchdog deadline and the fault-free snapshot reading."""
     import numpy as np
     import torch
 
@@ -1701,7 +1710,8 @@ def run_supervised_stream(cfg, params, smi, want) -> dict:
     base_cells = calls["cell"]
     if base_cells != base_rounds * items * pcfg.num_cells:
         fail(f"supervised c: {base_cells} cell calls for {base_rounds} rounds")
-    print_supervisor_times("stream c fault-free", spent, tree_bytes(eng.cell_states), smi)
+    snapshot = print_supervisor_times("stream c fault-free", spent, tree_bytes(eng.cell_states),
+                                      smi)
     deadline = 3 * max(spent["step"])
     print(f"supervised c fault-free: tokens identical to run c's; {base_rounds} rounds, "
           f"{base_prefills} prefill calls; launches {launches}; watchdog deadline "
@@ -1757,7 +1767,7 @@ def run_supervised_stream(cfg, params, smi, want) -> dict:
           f"unsupervised allowance (payload + one shard of {shard} bytes)", flush=True)
     eng._cell_fn, eng._emit = cell_fn, emit
     del eng
-    return total, deadline
+    return total, deadline, snapshot
 
 
 def run_supervised_cli(cfg, deadline, smi) -> dict:
@@ -1815,16 +1825,17 @@ def run_supervised_cli(cfg, deadline, smi) -> dict:
     return total
 
 
-def run_supervised_phase(cfg, params, smi, engine_greedy, stream_c) -> dict:
-    """The supervised engines and the serve CLI; returns the launches."""
+def run_supervised_phase(cfg, params, smi, engine_greedy, stream_c) -> tuple[dict, dict]:
+    """The supervised engines and the serve CLI; returns the launches and
+    StreamEngine c's fault-free snapshot reading (step 14c's yardstick)."""
     total = dict(NO_LAUNCHES)
     engine = run_supervised_engine(cfg, params, smi, engine_greedy)
-    stream, deadline = run_supervised_stream(cfg, params, smi, stream_c)
+    stream, deadline, snapshot = run_supervised_stream(cfg, params, smi, stream_c)
     cli = run_supervised_cli(cfg, deadline, smi)
     for part in (engine, stream, cli):
         for k, v in part.items():
             total[k] += v
-    return total
+    return total, snapshot
 
 
 # ---------------------------------------------------------------------------
@@ -3279,13 +3290,15 @@ def run_serve_ranks_phase(smi, served) -> dict:
     tokens must equal the greedy flash Engine's; 8 cells and 4
     microbatches of 2 (run b's) under gpipe and under interleaved (2
     virtual stages), whose tokens must equal run b's and whose
-    decode-attention, emit and flash launches must equal b's.  b, the
-    sieve at limit 5000 (blocks of 256, 16 primes a cell: 669 primes) and
-    the 4-limb Fateman product ((1+x+y+z)^20 squared) across the axis,
-    each equal to step 9's Lazy run.  About 50 s.  ``served``: the
-    Engine's and run b's tokens, b's launches, step 9's Lazy product and
-    sieve and their wall times.  Returns the launch counts of the three
-    runs, summed."""
+    decode-attention, emit and flash launches must equal b's.  c (after
+    a), run a's pipeline under ``ServeSupervisor`` with the chaos faults
+    (:func:`run_supervised_ranks`).  b, the sieve at limit 5000 (blocks of
+    256, 16 primes a cell: 669 primes) and the 4-limb Fateman product
+    ((1+x+y+z)^20 squared) across the axis, each equal to step 9's Lazy
+    run.  About 75 s.  ``served``: the Engine's and run b's tokens, b's
+    launches, step 5b's snapshot reading, step 9's Lazy product and sieve
+    and their wall times.
+    Returns the launch counts of 14a's and 14c's runs, summed."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
@@ -3321,11 +3334,136 @@ def run_serve_ranks_phase(smi, served) -> dict:
         print(f"14a stream engine across 1 pod rank, {label}: tokens identical to run b's, "
               f"decode attention, emit and flash launches equal to b's "
               f"({[launches[k] for k in counted]})", flush=True)
+    launches = run_supervised_ranks(cfg, params, mesh, smi, served["engine"],
+                                    served["snapshot_c"])
+    for k, v in launches.items():
+        total[k] += v
     del params
     free_card()
     run_rank_programs(mesh, smi, served)
     print(f"14 serve-ranks phase ({smi}): {time.perf_counter() - started:.1f} s; launches "
           f"{total}", flush=True)
+    return total
+
+
+def run_supervised_ranks(cfg, params, mesh, smi, want, one) -> dict:
+    """14c. Run a's pipeline (4 cells, 1 microbatch of 8, 8 steps a round)
+    through ``StreamEngine(mesh=)`` on the one-rank pod axis, under
+    ``ServeSupervisor``, which agrees each round attempt over the axis's
+    NCCL group (its all-gathers run on the card): fault-free with its
+    per-round costs, then each fault of :data:`STREAM_CHAOS` (the watchdog
+    at 3x the slowest fault-free round, the wedge at twice that).  Each
+    run loses no request and gives ``want`` (the greedy flash Engine's
+    tokens); its launches are 4 decode attentions a cell call (4 layers a
+    cell), 1 emit an emitted item and 16 flash attentions a prefill call,
+    counted from the calls it made, replays included.  The snapshot's
+    bytes, p50 and share of the supervised round are printed beside
+    ``one``, step 5b's one-card supervised StreamEngine c's.  Returns the
+    summed launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+    from repro_torch.serve.supervisor import ServeSupervisor, SupervisorConfig
+
+    started = time.perf_counter()
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32, prefill_chunk=128,
+                       attn_impl="flash")
+    pcfg = DecodePipelineConfig(kernels="cuda", num_cells=4, microbatches=1, round_steps=8,
+                                admit_per_round=4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
+    eng = StreamEngine(params, cfg, scfg, pcfg, mesh=mesh, device="cuda")
+    eng.pristine = ServeSupervisor(eng).snapshot()
+    nbytes = tree_bytes(eng.cell_states)
+    per_cell = cfg.num_layers // pcfg.num_cells
+    items = pcfg.round_steps * pcfg.microbatches
+    prefills = [0]
+    count_prefills(eng, prefills)
+    calls = {"cell": 0, "emit": 0, "agree": 0}
+    cell_fn, emit = eng._cell_fn, eng._emit
+
+    def cell(*args):
+        out = cell_fn(*args)
+        calls["cell"] += 1
+        return out
+
+    def counted_emit(item):
+        out = emit(item)
+        calls["emit"] += 1
+        return out
+
+    eng._cell_fn, eng._emit = cell, counted_emit
+
+    def agreed(sup):
+        """Count the supervisor's agreements; each must run on the card's
+        NCCL group."""
+        if sup._group is None or dist.get_backend(sup._group) != "nccl":
+            fail("14c: the supervisor of a ranked engine has no NCCL group to agree over")
+        agree = sup._agree
+
+        def counted(*args):
+            calls["agree"] += 1
+            return agree(*args)
+
+        sup._agree = counted
+
+    total = dict(NO_LAUNCHES)
+
+    def run(label, fault=None, cfg_=None, spent=None):
+        for k in calls:
+            calls[k] = 0
+        p0, r0 = prefills[0], eng.rounds
+        sup, tokens, launches = supervised_run(eng, prompts, f"14c {label}", fault=fault,
+                                               cfg=cfg_, spent=spent, wrap=agreed)
+        expected = dict(NO_LAUNCHES, decode_attention=calls["cell"] * per_cell,
+                        emit_norm_logits=calls["emit"],
+                        attention=(prefills[0] - p0) * cfg.num_layers)
+        if launches != expected:
+            fail(f"14c {label}: launch counts {launches}, expected {expected}")
+        if tokens != want:
+            fail(f"14c {label}: tokens differ from the greedy flash Engine's")
+        # two agreements an attempt, one when the fault comes before the step
+        if calls["agree"] < 2 * sup.stats["rounds"]:
+            fail(f"14c {label}: {calls['agree']} agreements for {sup.stats['rounds']} rounds")
+        for k, v in launches.items():
+            total[k] += v
+        return sup, launches, eng.rounds - r0, prefills[0] - p0
+
+    spent = {}
+    sup, launches, base_rounds, base_prefills = run("fault-free", spent=spent)
+    base_cells = calls["cell"]
+    if base_cells != base_rounds * items * pcfg.num_cells:
+        fail(f"14c: {base_cells} cell calls for {base_rounds} rounds")
+    mine = print_supervisor_times("14c stream across 1 pod rank fault-free", spent, nbytes, smi)
+    deadline = 3 * max(spent["step"])
+    print(f"14c supervised across 1 pod rank ({smi}): tokens identical to the greedy flash "
+          f"Engine's; {base_rounds} rounds, {calls['agree']} agreements over the NCCL group; "
+          f"snapshot of {mine['bytes']} bytes, p50 {mine['p50_ms']:.2f} ms, "
+          f"{mine['share']:.3f} of the supervised rounds' time, beside step 5b's one-card "
+          f"supervised StreamEngine c: {one['bytes']} bytes, p50 {one['p50_ms']:.2f} ms, "
+          f"{one['share']:.3f}; launches {launches}; watchdog deadline {deadline:.3f} s (3x the "
+          f"slowest supervised round)", flush=True)
+    for fault in STREAM_CHAOS:
+        label, spent = "%s@%d" % fault, {}
+        sup, launches, n_rounds, n_prefills = run(
+            label, fault, SupervisorConfig(deadline_s=deadline), spent=spent)
+        # raise and sigterm add no work; nan and wedge ran their round once
+        # before the scan or the watchdog caught it, and ran it again
+        replays = sup.stats["restarts"] if fault[0] in ("nan", "wedge") else 0
+        if n_rounds != base_rounds + replays or calls["cell"] != (
+                base_cells + replays * items * pcfg.num_cells):
+            fail(f"14c {label}: {n_rounds} rounds and {calls['cell']} cell calls, expected "
+                 f"{base_rounds} + {replays} replayed rounds")
+        print(f"14c supervised across 1 pod rank {label}: 0 requests lost, tokens identical to "
+              f"the greedy flash Engine's; stats {sup.stats}; {n_rounds} rounds ({replays} "
+              f"replayed), {n_prefills} prefill calls ({n_prefills - base_prefills} replayed), "
+              f"{calls['agree']} agreements; {restore_times(spent)}; launches {launches}",
+              flush=True)
+    eng._cell_fn, eng._emit = cell_fn, emit
+    del eng
+    print(f"14c ({smi}): {time.perf_counter() - started:.1f} s; launches {total}", flush=True)
     return total
 
 
@@ -3723,7 +3861,7 @@ def main() -> int:
 
     # 5b. Supervised serving: both engines under ServeSupervisor with chaos
     # faults, and the serve CLI
-    sup_launches = run_supervised_phase(cfg, params, smi, flash_tokens, stream_c)
+    sup_launches, snapshot_c = run_supervised_phase(cfg, params, smi, flash_tokens, stream_c)
     for name, op in (("decode_attention", "decode_attention"),
                      ("emit_norm_logits", "emit_norm_logits"), ("flash_attention", "attention")):
         launches[name] += se_launches[op] + sup_launches[op]
@@ -3780,6 +3918,7 @@ def main() -> int:
     # same group, the pipelined demo step; 14, the StreamEngine, the sieve
     # and the product across its one-rank pod axis
     ranked = run_mesh_phase(smi, dict(engine=flash_tokens, b=stream_c, b_launches=b_launches,
+                                      snapshot_c=snapshot_c,
                                       product=product, product_wall=product_wall,
                                       primes=primes, primes_wall=primes_wall))
     for name, op in (("decode_attention", "decode_attention"),

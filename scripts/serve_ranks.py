@@ -25,6 +25,17 @@ holding full-width OLMo-1B (bf16, random weights from seed 0;
   emit, and every rank prefills (flash) as the one card does.  Rank 0
   prints tok/s and round p50 (host clock, synchronised) beside the
   one-card StreamEngine's.
+* Supervised: run b's pipeline (8 cells, 4 microbatches of 2) through
+  ``StreamEngine(mesh=)`` under ``ServeSupervisor``, which agrees every
+  round attempt over the NCCL group: fault-free, ``raise@2`` on every
+  rank and ``nan@2`` in rank 2's cells only, each with 0 requests lost,
+  the one-card StreamEngine's tokens and the same ``stats`` and
+  ``events`` on every rank; each rank snapshots its quarter of the cache
+  (268,435,456 bytes of the 1,073,741,824), timed.
+* Mamba2-1.3B at full width (48 blocks; ``--smoke``: 8 layers, fp32)
+  through ``StreamEngine(mesh=)`` at 8 cells and 1 microbatch of 8: the
+  tokens of its one-card ``Engine`` on every rank, SSD and RMSNorm
+  launches as the calls made, the emit on rank 3 only.
 * The paper's programs: the sieve (limit 20000, blocks of 256, 16 primes
   a cell, 168 cells: 42 a rank) and Fateman's (1+x+y+z)^20 squared (4
   limbs, 4 x-chunks, 224 cells of 8 terms: 56 a rank), gpipe across the
@@ -193,6 +204,14 @@ def rank_main(rank: int, port: int, args) -> None:
             f"(decode attention, emit, flash) {[(g['decode_attention'], g['emit_norm_logits'], f) for _, g, f in every]}")
         del eng
 
+    # Supervised across the ranks: run b's pipeline under ServeSupervisor
+    supervised_ranks(params, cfg, scfg, prompts, lazy_tokens, mesh, rank, device, cpu, failed,
+                     say)
+    del params
+    free_card(cpu)
+    # Mamba2-1.3B across the ranks, beside its one-card Engine
+    mamba_ranks(args, mesh, rank, device, cpu, failed, say)
+
     # The paper's programs
     limit, power = (2000, 8) if args.smoke else (20000, 20)
     cells = 168 if not args.smoke else 32  # divisible by the 4 ranks
@@ -240,6 +259,176 @@ def rank_main(rank: int, port: int, args) -> None:
     if failed:
         print(f"rank {rank}: {failed}", file=sys.stderr, flush=True)
         sys.exit(1)
+
+
+def free_card(cpu: bool) -> None:
+    """Give back the memory of dropped weights (wrappers close over them)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()
+
+
+def supervised_ranks(params, cfg, scfg, prompts, want, mesh, rank, device, cpu, failed,
+                     say) -> None:
+    """``ServeSupervisor`` over ``StreamEngine(mesh=)`` at 8 cells and 4
+    microbatches (gpipe): fault-free, ``raise@2`` on every rank, and
+    ``nan@2`` in rank 2's cells only.  Every run loses no request and
+    gives ``want`` (the one-card StreamEngine's tokens) on every rank,
+    with the same ``stats`` and ``events`` on every rank; each rank's
+    snapshot holds its cells' quarter of the cache, timed a round."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch import pytree as P
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import StreamEngine
+    from repro_torch.serve.supervisor import ServeSupervisor, chaos_injector
+
+    pcfg = DecodePipelineConfig(num_cells=CELLS, microbatches=4, round_steps=8,
+                                admit_per_round=4)
+    eng = StreamEngine(params, cfg, scfg, pcfg, mesh=mesh, device=device)
+    pristine = ServeSupervisor(eng).snapshot()
+    nbytes = sum(t.numel() * t.element_size() for t in P.leaves(eng.cell_states))
+    whole = sum(t.numel() * t.element_size()
+                for t in P.leaves(T.cache_layout(cfg, scfg.max_batch, scfg.max_len)))
+    if nbytes * WORLD != whole:
+        failed.append(f"supervised: rank {rank} holds {nbytes} bytes of a {whole}-byte cache")
+    for label, injector in (("fault-free", None), ("raise@2", chaos_injector("raise", 2)),
+                            ("nan@2 in rank 2's cells",
+                             chaos_injector("nan", 2) if rank == 2 else None)):
+        sup = ServeSupervisor(eng, fail_injector=injector)
+        sup.restore(pristine)
+        snaps, rounds = [], []
+        snapshot, step = sup._snapshot, sup.step
+
+        def timed(fn, into):
+            def call(*a):
+                if not cpu:
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a)
+                if not cpu:
+                    torch.cuda.synchronize()
+                into.append(time.perf_counter() - t)
+                return out
+            return call
+
+        sup._snapshot, sup.step = timed(snapshot, snaps), timed(step, rounds)
+        K.reset_launches()
+        reqs = [sup.submit(p) for p in prompts]
+        sup.run_until_drained()
+        tokens = [r.out_tokens for r in reqs]
+        p50 = statistics.median(snaps[1:] or snaps)
+        every = [None] * WORLD
+        dist.all_gather_object(every, (tokens, sup.stats, sup.events, p50,
+                                       dict(K.LAUNCHES)["decode_attention"]))
+        if not all(t == want for t, *_ in every):
+            failed.append(f"supervised {label}: tokens differ from the one-card StreamEngine's")
+        if any(s != sup.stats or e != sup.events for _, s, e, _, _ in every):
+            failed.append(f"supervised {label}: stats or events differ between ranks")
+        if sup.stats["requests_lost"] or sup.stats["restarts"] != (label != "fault-free"):
+            failed.append(f"supervised {label}: stats {sup.stats}")
+        say(f"supervised {label}: across {WORLD} ranks (rank 0) {sum(map(len, tokens))} "
+            f"tokens, round p50 {statistics.median(rounds) * 1e3:.1f} ms (host clock, "
+            f"synchronised); tokens identical to the one-card StreamEngine's on every rank; "
+            f"stats {sup.stats}; snapshot of {nbytes} bytes a rank ({whole} in all), p50 by "
+            f"rank {[round(t * 1e3, 2) for *_, t, _ in every]} ms, "
+            f"{sum(snaps) / sum(rounds):.3f} of rank 0's supervised rounds' time; decode "
+            f"attention launches by rank {[n for *_, n in every]}; events "
+            f"{[e['event'] for e in sup.events]}")
+    del eng, pristine
+
+
+def mamba_ranks(args, mesh, rank, device, cpu, failed, say) -> None:
+    """Mamba2-1.3B (48 blocks; ``--smoke``: its smoke config at 8 layers,
+    fp32) through ``StreamEngine(mesh=)`` at 8 cells and 1 microbatch of 8
+    (gpipe), beside the one-card ``Engine`` (rank 0): the same tokens on
+    every rank; SSD and RMSNorm launches as the calls made (every rank
+    prefills the whole model; a rank decodes its cells), the emit on rank
+    3 only.  ``prefill_chunk`` is the SSD chunk, 256."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import Engine, ServeConfig, StreamEngine
+
+    cfg = get_config("mamba2-1.3b")
+    if args.smoke:
+        cfg = smoke_config(cfg).with_overrides(num_layers=8, dtype=torch.float32)
+    cfg = cfg.with_overrides(kernels="plain" if cpu else "cuda")
+    params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device=device)).params
+    scfg = ServeConfig(max_batch=8, max_len=1024, max_new_tokens=32,
+                       prefill_chunk=cfg.ssm.chunk_size)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in PROMPT_LENS]
+
+    def serve(eng):
+        prefills = [0]
+        prefill = eng._prefill
+
+        def counted(*a, **kw):
+            prefills[0] += 1
+            return prefill(*a, **kw)
+
+        eng._prefill = counted
+        K.reset_launches()
+        if not cpu:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run_until_drained()
+        if not cpu:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        tokens = [r.out_tokens for r in reqs]
+        if not all(r.done and len(t) == scfg.max_new_tokens for r, t in zip(reqs, tokens)):
+            failed.append(f"mamba {type(eng).__name__}: a request did not finish its budget")
+        return tokens, wall, prefills[0], dict(K.LAUNCHES)
+
+    one = [None, None]
+    if rank == 0:
+        tokens, wall, _, _ = serve(Engine(params, cfg, scfg, device=device))
+        n = sum(map(len, tokens))
+        say(f"mamba one card, Engine: {n} tokens in {wall:.3f} s: {n / wall:.1f} tok/s")
+        one = [tokens, wall]
+    dist.broadcast_object_list(one, src=0)
+    pcfg = DecodePipelineConfig(num_cells=CELLS, microbatches=1, round_steps=8,
+                                admit_per_round=4)
+    eng = StreamEngine(params, cfg, scfg, pcfg, mesh=mesh, device=device)
+    tokens, wall, calls, launches = serve(eng)
+    items = eng.rounds * pcfg.round_steps
+    layers = cfg.num_layers
+    expect = {"ssd": calls * layers, "rmsnorm": 2 * layers * (calls + items // WORLD),
+              "emit_norm_logits": items if rank == WORLD - 1 else 0, "decode_attention": 0}
+    if cpu:
+        expect = {k: 0 for k in expect}  # the plain ops count no launch
+    got = {k: launches[k] for k in expect}
+    every = [None] * WORLD
+    dist.all_gather_object(every, (tokens, got))
+    same = all(t == one[0] for t, _ in every)
+    if not same:
+        failed.append("mamba across ranks: tokens differ from the one-card Engine's")
+    if got != expect:
+        failed.append(f"mamba across ranks: rank {rank} launches {got}, expected {expect}")
+    n = sum(map(len, tokens))
+    say(f"mamba across {WORLD} ranks ({cfg.num_layers} blocks, {CELLS} cells, 1 microbatch of "
+        f"8): {n} tokens in {wall:.3f} s: {n / wall:.1f} tok/s (rank 0; one card's Engine "
+        f"{one[1]:.3f} s); tokens {'identical to' if same else 'DIFFERENT from'} the one-card "
+        f"Engine's on every rank; launches by rank (ssd, rmsnorm, emit) "
+        f"{[(g['ssd'], g['rmsnorm'], g['emit_norm_logits']) for _, g in every]}")
+    del eng, params
+    free_card(cpu)
 
 
 def main() -> int:

@@ -39,6 +39,14 @@ CUDA kernels on a card, the plain PyTorch ops on the CPU).
         --engine stream --devices 4 --cells 8 --microbatches 4 \\
         --max-batch 8 --max-len 1024 --prefill-chunk 128 --kernels cuda
 
+    # supervised across the ranks: every rank's supervisor agrees each
+    # round's faults, replays and drain with the others (a SIGTERM to
+    # any rank drains all of them); --chaos fires on every rank
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch olmo-1b \\
+        --engine stream --devices 4 --cells 8 --microbatches 4 \\
+        --max-batch 8 --max-len 1024 --prefill-chunk 128 --kernels cuda \\
+        --watchdog-ms 30000 --chaos raise@2
+
 ``main(argv)`` returns the finished requests.  An embedding-input arch
 (musicgen-medium) exits with a message, as the reference's CLI does: it
 needs the embedding frontend stub.
@@ -178,9 +186,6 @@ def main(argv=None):
         if args.engine != "stream" or args.devices != size:
             raise SystemExit(f"under a process group of {size} ranks the CLI serves "
                              f"--engine stream --devices {size} across them")
-        if args.chaos or args.watchdog_ms:
-            raise SystemExit("the supervisor (--chaos, --watchdog-ms) serves one card, "
-                             "not across ranks")
         from repro_torch.launch.mesh import make_mesh
 
         if args.device != "cpu":

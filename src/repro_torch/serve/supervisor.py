@@ -56,6 +56,46 @@ What differs from the reference:
   replay in the same process can recover from it, and it surfaces as
   ``gave_up`` -- never as a run moved to the CPU.
 
+Across ranks (a ``StreamEngine(mesh=)``, whose cells split over the
+ranks of the mesh axis ``pcfg.axis_name``), every rank runs this host
+loop on the same submissions, and every decision that changes the host
+state is agreed over the axis's process group:
+
+* each rank snapshots and restores only its own cells' shards (its
+  ``cell_states``); the host state -- lengths, slots, queue, request
+  fields, uid counter -- is the same on every rank.  The snapshot is
+  taken at the round boundary, where no hop of the ranked loop is in
+  flight (the loop waits on every hop before it returns).
+* each attempt agrees twice, each time by one small all-gather of a
+  per-rank outcome (0 ok, 1 exception, 2 watchdog, 3 numerics, a
+  draining bit, the rank's round time), on the engine's device (NCCL
+  needs CUDA tensors; gloo takes CPU ones): after the injector, before
+  ``engine.step()`` -- so an injected fault or a SIGTERM on one rank
+  never leaves the others blocked in the round's hops -- and after the
+  step, the watchdog and the numerics scan.  If any rank reports a
+  fault, every rank counts it, writes the same ``round_fault`` event
+  (naming each faulting rank, its kind and its error), draws on its
+  budget, restores its shards and replays; once the budget is spent,
+  every rank raises (a rank that saw no fault itself raises a
+  :class:`RoundFault` naming the others) with the same
+  ``requests_lost``.
+* each rank times its own round; a round trips the watchdog when any
+  rank's time passes ``deadline_s``, and the slowest rank's time feeds
+  the straggler tracker, so ``stats`` and ``events`` stay equal on every
+  rank.  Each rank scans its own shards for NaN/inf.
+* ``request_drain`` (SIGTERM) sets a flag of this rank's; the flags are
+  OR-ed at each agreement, so every rank closes admission, and writes
+  ``drained``, at the same round.
+* a heartbeat file is written per rank, ``<heartbeat_path>.rank<r>``.
+
+Out of scope, as in the reference (whose SPMD program raises on every
+device at once): a fault raised inside ``engine.step()`` on one rank
+only, once the round's hops have begun.  The other ranks then wait in a
+hop or a collective that the faulting rank never joins, and the process
+group's timeout fails the world (``launch.serve.GROUP_TIMEOUT``; under
+``torchrun`` the world is then restarted): it never hangs without a
+bound.  Recovering a communicator in place is not attempted.
+
 Fault injection (the chaos battery's entry point) is a
 :mod:`repro_torch.resilience.injection` callable invoked with
 ``(round_index, engine)`` before each round attempt;
@@ -94,6 +134,13 @@ class NumericsFault(RoundFault):
 
 class DrainingError(RuntimeError):
     """submit() after SIGTERM/drain was requested (admission closed)."""
+
+
+# A rank's outcome of one round attempt, as the agreement across ranks
+# carries it
+OK, RAISED, WATCHDOG, NUMERICS = 0, 1, 2, 3
+OUTCOMES = {RAISED: "exception", WATCHDOG: "watchdog", NUMERICS: "numerics"}
+_TEXT_BYTES = 256  # of each rank's error text in a fault's event
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,11 +200,6 @@ class ServeSupervisor:
         fail_injector: Callable | None = None,
         on_event: Callable[[dict], None] | None = None,
     ):
-        if getattr(engine, "mesh", None) is not None:
-            # a replay across ranks needs every rank to fault, restore and
-            # replay together: not built yet
-            raise ValueError("ServeSupervisor supervises an engine on one card; a "
-                             "StreamEngine across ranks (mesh=) is not supervised")
         self.engine = engine
         self.cfg = cfg or SupervisorConfig()
         self.fail_injector = fail_injector
@@ -169,7 +211,20 @@ class ServeSupervisor:
         }
         self._round_idx = 0
         self._draining = False
-        self._hb = Heartbeat(self.cfg.heartbeat_path)
+        self._drain_asked = False  # this rank's SIGTERM, not yet agreed
+        # Across ranks: the mesh axis's process group every decision is
+        # agreed over
+        self._group = None
+        hb_path = self.cfg.heartbeat_path
+        if getattr(engine, "mesh", None) is not None:
+            import torch.distributed as dist
+
+            from repro_torch.core.future import axis_group
+
+            self._group = axis_group(engine.pcfg.axis_name, engine.mesh)
+            if hb_path:
+                hb_path = f"{hb_path}.rank{dist.get_rank()}"
+        self._hb = Heartbeat(hb_path)
         self._straggler = StragglerTracker(self.cfg.straggler_factor)
         self._policy = RestartPolicy(
             max_restarts=self.cfg.max_restarts,
@@ -184,7 +239,14 @@ class ServeSupervisor:
         signal.signal(signal.SIGTERM, self.request_drain)
 
     def request_drain(self, *_):
-        """SIGTERM handler: close admission, keep serving until drained."""
+        """SIGTERM handler: close admission, keep serving until drained.
+        Across ranks admission closes at the next agreement, on every
+        rank at once."""
+        self._drain_asked = True
+        if self._group is None:
+            self._start_draining()
+
+    def _start_draining(self) -> None:
         if not self._draining:
             self._draining = True
             self._event({"event": "drain_requested"})
@@ -311,10 +373,75 @@ class ServeSupervisor:
             + [r.uid for r in eng.active if r is not None and not r.done]
         )
 
+    # -- agreement across ranks ---------------------------------------------
+
+    def _agree(self, err: Exception | None, dt: float = 0.0):
+        """An attempt's outcome over every rank: ``(fault, error, dt)``,
+        the exception this rank raises once the budget is spent (None
+        when no rank faulted), the ``round_fault`` event's error text and
+        the round's time (the slowest rank's).  On one card, this
+        process's own.  Across ranks, one all-gather of each rank's
+        outcome, drain flag and time; where a rank faulted, a second of
+        each rank's error text."""
+        if self._group is None:
+            return err, None if err is None else f"{type(err).__name__}: {err}", dt
+        import torch.distributed as dist
+
+        code = (OK if err is None else WATCHDOG if isinstance(err, WatchdogTimeout)
+                else NUMERICS if isinstance(err, NumericsFault) else RAISED)
+        mine = torch.tensor([code, int(self._drain_asked), round(dt * 1e6)],
+                            dtype=torch.int64, device=self.engine.device)
+        rows = [torch.empty_like(mine) for _ in range(dist.get_world_size(self._group))]
+        dist.all_gather(rows, mine, group=self._group)
+        rows = torch.stack(rows).tolist()  # (code, drain, microseconds) a rank
+        if any(drain for _, drain, _ in rows):
+            self._start_draining()
+        dt = max(us for _, _, us in rows) / 1e6
+        faulty = [(rank, c) for rank, (c, _, _) in enumerate(rows) if c != OK]
+        if not faulty:
+            return None, None, dt
+        texts = self._gather_text("" if err is None else f"{type(err).__name__}: {err}")
+        error = "; ".join(f"rank {rank} {OUTCOMES[c]}: {texts[rank]}" for rank, c in faulty)
+        if err is None:
+            err = RoundFault(f"round {self._round_idx} failed on another rank: {error}")
+        return err, error, dt
+
+    def _gather_text(self, text: str) -> list[str]:
+        """Every rank's ``text`` (its first ``_TEXT_BYTES`` bytes)."""
+        import torch.distributed as dist
+
+        raw = text.encode()[:_TEXT_BYTES].ljust(_TEXT_BYTES, b"\0")
+        mine = torch.tensor(list(raw), dtype=torch.uint8, device=self.engine.device)
+        bufs = [torch.empty_like(mine) for _ in range(dist.get_world_size(self._group))]
+        dist.all_gather(bufs, mine, group=self._group)
+        return [bytes(b.tolist()).rstrip(b"\0").decode(errors="ignore") for b in bufs]
+
     # -- the supervised round ------------------------------------------------
 
+    def _run_round(self, t0: float):
+        """``engine.step()``, then the watchdog and the numerics scan:
+        ``(finished, this rank's fault or None, the round's time)``."""
+        try:
+            finished = self.engine.step()
+        except Exception as e:  # noqa: BLE001 -- any fault: replay
+            return None, e, time.monotonic() - t0
+        dt = time.monotonic() - t0
+        if self.cfg.deadline_s is not None and dt > self.cfg.deadline_s:
+            return finished, WatchdogTimeout(
+                f"round {self._round_idx} took {dt:.3f}s > deadline {self.cfg.deadline_s}s"), dt
+        if self.cfg.check_numerics:
+            try:
+                self._check_numerics()
+            except Exception as e:  # noqa: BLE001
+                return finished, e, dt
+        return finished, None, dt
+
     def step(self) -> list[Request]:
-        """One supervised round: snapshot -> run -> verify, replay on fault."""
+        """One supervised round: snapshot -> run -> verify, replay on fault.
+
+        Across ranks the attempt is agreed before the step (an injected
+        fault on one rank keeps every rank out of the round's hops) and
+        after it, so every rank replays, or returns, together."""
         snap = self._snapshot(self._round_buffers)
         self._round_buffers = P.leaves(snap.device)
         budget = RestartBudget(self._policy)
@@ -322,23 +449,18 @@ class ServeSupervisor:
             t0 = time.monotonic()
             try:
                 call_injector(self.fail_injector, self._round_idx, self.engine)
-                finished = self.engine.step()
-                dt = time.monotonic() - t0
-                if self.cfg.deadline_s is not None and dt > self.cfg.deadline_s:
-                    raise WatchdogTimeout(
-                        f"round {self._round_idx} took {dt:.3f}s "
-                        f"> deadline {self.cfg.deadline_s}s"
-                    )
-                if self.cfg.check_numerics:
-                    self._check_numerics()
-            except (KeyboardInterrupt, SystemExit):
-                raise
+                err = None
             except Exception as e:  # noqa: BLE001 -- any fault: replay
+                err = e
+            fault, error, dt = self._agree(err)
+            if fault is None:
+                finished, err, dt = self._run_round(t0)
+                fault, error, dt = self._agree(err, dt)
+            if fault is not None:
                 self.stats["faults"] += 1
                 self._event({
                     "event": "round_fault", "round": self._round_idx,
-                    "error": f"{type(e).__name__}: {e}",
-                    "attempt": budget.restarts,
+                    "error": error, "attempt": budget.restarts,
                 })
                 if not budget.admit():
                     # the requests live at the round's start: a round that
@@ -350,7 +472,7 @@ class ServeSupervisor:
                         "event": "gave_up", "round": self._round_idx,
                         "requests_lost": lost,
                     })
-                    raise
+                    raise fault
                 self.stats["restarts"] += 1
                 time.sleep(budget.next_delay())
                 self.restore(snap)

@@ -1760,3 +1760,53 @@ def test_pipelined_demo_step_on_the_card_equals_lazy(nccl_pod, schedule, interle
     assert torch.isfinite(loss) and torch.equal(loss, want_loss)
     assert all(torch.equal(a, b) for a, b in zip(P.leaves(got), P.leaves(want)))
     assert K.LAUNCHES == {op: 0 for op in K.OPS}
+
+
+# ---------------------------------------------------------------------------
+# serve/supervisor: a ranked StreamEngine under ServeSupervisor on a one-rank
+# NCCL group (four gloo ranks check faults across ranks on the CPU,
+# tests/test_torch_supervisor_ranks.py)
+# ---------------------------------------------------------------------------
+
+
+def test_supervisor_across_a_pod_rank_agrees_on_the_card(nccl_pod, monkeypatch):
+    """The narrow OLMo (kernels="cuda") through ``StreamEngine(mesh=)`` on
+    the one-rank pod axis, under ``ServeSupervisor`` with ``raise@1``:
+    the unsupervised run's tokens, 0 requests lost, one replay, and every
+    agreement an all-gather of tensors on the card (NCCL takes no CPU
+    tensor)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import DecodePipelineConfig
+    from repro_torch.serve.engine import ServeConfig, StreamEngine
+    from repro_torch.serve.supervisor import ServeSupervisor, chaos_injector
+
+    cfg, params = _serving_model("olmo-1b")
+    scfg = ServeConfig(max_batch=4, max_len=256, prefill_chunk=16, max_new_tokens=7)
+    pcfg = DecodePipelineConfig(num_cells=4, microbatches=2, round_steps=3, admit_per_round=2,
+                                kernels="cuda")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 1024, size=n) for n in [5, 40, 17, 64, 3, 30]]
+    budgets = [7, 3, 5, 6, 2, 7]
+
+    def serve(server):
+        reqs = [server.submit(p, b) for p, b in zip(prompts, budgets)]
+        server.run_until_drained()
+        assert all(r.done and r.status == "ok" for r in reqs)
+        return [r.out_tokens for r in reqs]
+
+    want = serve(StreamEngine(params, cfg, scfg, pcfg, mesh=nccl_pod, device="cuda"))
+    devices = []
+    all_gather = dist.all_gather
+
+    def recorded(out, t, *args, **kw):
+        devices.append(t.device.type)
+        return all_gather(out, t, *args, **kw)
+
+    monkeypatch.setattr(dist, "all_gather", recorded)
+    sup = ServeSupervisor(StreamEngine(params, cfg, scfg, pcfg, mesh=nccl_pod, device="cuda"),
+                          fail_injector=chaos_injector("raise", 1))
+    assert serve(sup) == want
+    assert sup.stats["restarts"] == 1 and sup.stats["requests_lost"] == 0, sup.stats
+    assert "rank 0 exception: InjectedFault" in sup.events[0]["error"]
+    assert len(devices) >= 2 * sup.stats["rounds"] and set(devices) == {"cuda"}
