@@ -44,6 +44,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec
+from repro_torch.roofline import trace as TR
 
 PyTree = Any
 
@@ -464,8 +465,9 @@ def forward(
     ``remat`` (the reference's ``jax.checkpoint`` per group): under
     autograd, each layer group keeps only its input and is recomputed on
     the backward pass (``graph._checkpoint``, non-reentrant); without
-    autograd it changes nothing.  The reference's ``unroll`` is an XLA
-    knob with no counterpart here.
+    autograd it changes nothing.  Under ``torch.profiler`` each group runs
+    in a span ``model.group``, and so does its recompute.  The
+    reference's ``unroll`` is an XLA knob with no counterpart here.
     """
     L.check_attn_impl(attn_impl)
     plans = block_plans(cfg)
@@ -475,12 +477,14 @@ def forward(
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     def group_fn(group_params, x, vision_embeds):
-        return _apply_group(
-            group_params, x, cfg, plans,
-            positions=positions, vision_embeds=vision_embeds, collect_kv=collect_kv,
-            attn_impl=attn_impl, q_chunk=q_chunk, kv_chunk=kv_chunk,
-            causal_skip=causal_skip, kernels=mode,
-        )
+        # inside the checkpoint, so the span also marks remat's recompute
+        with TR.span(TR.MODEL_GROUP):
+            return _apply_group(
+                group_params, x, cfg, plans,
+                positions=positions, vision_embeds=vision_embeds, collect_kv=collect_kv,
+                attn_impl=attn_impl, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                causal_skip=causal_skip, kernels=mode,
+            )
 
     if remat:
         group_fn = G._checkpoint(group_fn)

@@ -37,6 +37,22 @@ tests can feed hand-made lists:
 * :func:`collective_bytes` -- the counterpart of
   ``collective_bytes_from_hlo``, from the collectives' operand shapes.
 
+The program's own spans: :func:`span` opens a ``record_function`` span
+only while a profiler is recording, and the engine, the train step and
+the model open one at each layer boundary, under the names
+:data:`PROGRAM_SPANS` lists.  Any ``torch.profiler`` session sees them,
+on the host clock that it maps the device records onto; with no
+profiler running a span enters nothing.  Their readers:
+
+* :func:`span_device_us` -- device busy time of the work launched inside
+  spans of one name (optionally only those inside spans of another);
+* :func:`span_host_us` -- host time of spans of one name, less the time
+  of named child spans;
+* :func:`span_launch_calls` -- the runtime calls inside spans of one name
+  that put work on the device;
+* :func:`idle_by_span` -- the device's idle time summed by the program
+  span that held the host when each gap began.
+
 ``analyze_hlo``'s loop-aware HBM count has no counterpart: per-kernel
 bytes come from :mod:`repro_torch.roofline.analytic`.
 
@@ -49,16 +65,55 @@ from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import fnmatch
 from typing import NamedTuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 STEP_SPAN = "profiled_step"  # a ``record_function`` span around each profiled step
 WARMUP_CYCLES = 20_000_000   # the warm-up phase's device spin (about 10 ms)
 MARGIN_S = 1.0               # host-only time kept before the first and after the last step
 
+# The program's spans (:func:`span`); indentation shows nesting.
+ENGINE_STEP = "engine.step"               # Engine.step()
+ENGINE_ADMIT = "engine.admit"             #   one request taken from the queue
+PREFILL_CACHE = "engine.prefill_cache"    #     the one-slot cache's allocation
+PREFILL_CHUNK = "engine.prefill_chunk"    #     each prefill chunk's issue
+PREFILL_WAIT = "engine.prefill_wait"      #     the wait for the stream before the draw
+PREFILL_DRAW = "engine.prefill_draw"      #     the first token's logits to the host, its draw
+SLOT_COPY = "engine.slot_copy"            #     the one-slot cache into its batch slot
+DECODE = "engine.decode"                  #   the decode step's issue
+DECODE_WAIT = "engine.decode_wait"        #   the wait for the stream before the draw
+DRAW = "engine.draw"                      #   the logits to the host, the batched draw
+TRAIN_STEP = "train.step"                 # make_train_step's step
+TRAIN_FORWARD = "train.forward"           #   lm_loss, once a micro-batch
+TRAIN_BACKWARD = "train.backward"         #   torch.autograd.grad (remat's recompute inside)
+TRAIN_OPTIMIZER = "train.optimizer"       #   adamw_update
+MODEL_GROUP = "model.group"               # forward's layer group, and its recompute
+PROGRAM_SPANS = (ENGINE_STEP, ENGINE_ADMIT, PREFILL_CACHE, PREFILL_CHUNK, PREFILL_WAIT,
+                 PREFILL_DRAW, SLOT_COPY, DECODE, DECODE_WAIT, DRAW, TRAIN_STEP, TRAIN_FORWARD,
+                 TRAIN_BACKWARD, TRAIN_OPTIMIZER, MODEL_GROUP)
+OUTSIDE = "(outside)"  # :func:`idle_by_span`'s key for gaps outside every program span
+
+_OFF = contextlib.nullcontext()
+
 _DEVICE_KINDS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
 _HOST_KINDS = {"cpu_op": "op", "user_annotation": "span", "cuda_runtime": "runtime",
                "cuda_driver": "runtime", "python_function": "python"}
+
+
+def span(name: str):
+    """A ``record_function`` span ``name`` while a profiler is recording,
+    else one shared context that does nothing: such a span costs under a
+    microsecond, where a ``record_function`` with no profiler running
+    costs over ten microseconds of dispatcher calls.  Use it as ``with
+    span(name): ...``; the profiler's own ``with`` block turns the spans
+    on."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class NoDeviceActivity(RuntimeError):
@@ -119,8 +174,6 @@ def records_from_profile(prof, shapes: bool = True) -> list[Record]:
     the block ends (``torch.cuda.synchronize()``) so that every kernel
     of the window has its span.  ``shapes=False`` skips the host ops'
     input shapes and dtypes (a run without ``record_shapes``)."""
-    import torch
-
     cuda = torch.autograd.DeviceType.CUDA
     out = []
     append = out.append
@@ -187,7 +240,6 @@ def profile_steps(step, steps: int, *, shapes: bool = True) -> list[Record]:
     end of the steps can go missing from the trace."""
     import time
 
-    import torch
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     torch.cuda.synchronize()
@@ -243,12 +295,17 @@ def _device(records) -> list[Record]:
     return dev
 
 
-def span_window(records, name: str = STEP_SPAN) -> tuple[float, float]:
-    """From the start of the first host span ``name`` to the end of the
-    last: the profiled steps' window."""
+def _spans(records, name: str) -> list[Record]:
     spans = [r for r in records if r.where == "host" and r.name == name]
     if not spans:
         raise ValueError(f"no host span {name!r} in the records")
+    return spans
+
+
+def span_window(records, name: str = STEP_SPAN) -> tuple[float, float]:
+    """From the start of the first host span ``name`` to the end of the
+    last: the profiled steps' window."""
+    spans = _spans(records, name)
     return min(r.start for r in spans), max(r.end for r in spans)
 
 
@@ -397,10 +454,7 @@ def launches(records, pattern: str, step: str = STEP_SPAN) -> list[int]:
     step), in order; a launch belongs to the span its runtime call
     lies in."""
     dev = _matching(records, pattern)
-    spans = sorted((r for r in records if r.where == "host" and r.name == step),
-                   key=lambda r: r.start)
-    if not spans:
-        raise ValueError(f"no host span {step!r} in the records")
+    spans = sorted(_spans(records, step), key=lambda r: r.start)
     when = _launch_time(records)
     starts = [s.start for s in spans]
     counts = [0] * len(spans)
@@ -459,12 +513,107 @@ def only_on_streams(records, pattern: str, streams) -> bool:
 def span_streams(records, name: str) -> list[int]:
     """The streams of the device work launched inside host spans ``name``
     (a script marks a stream by launching on it inside such a span)."""
-    spans = [r for r in records if r.where == "host" and r.name == name]
-    if not spans:
-        raise ValueError(f"no host span {name!r} in the records")
+    spans = _spans(records, name)
     when = _launch_time(records)
     return sorted({r.stream for r in _device(records)
                    if any(s.start <= when(r) <= s.end for s in spans)})
+
+
+class _Cover:
+    """The union of intervals, and whether a time lies in it."""
+
+    def __init__(self, intervals):
+        merged: list[list[float]] = []
+        for a, b in sorted(intervals):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        self.starts = [a for a, _ in merged]
+        self.ends = [b for _, b in merged]
+
+    def __contains__(self, t: float) -> bool:
+        i = bisect.bisect_right(self.starts, t) - 1
+        return i >= 0 and t <= self.ends[i]
+
+
+def span_device_us(records, name: str, within: str | None = None) -> float:
+    """Device busy time (the union of the records' spans) of the work
+    launched inside host spans ``name``: each device record belongs to a
+    span when its launch call (:func:`_launch_time`) lies in it.  With
+    ``within``, only the spans ``name`` that lie inside a span
+    ``within``.  Containment is by time, on any thread, as in
+    :func:`launches`: autograd launches the backward from a thread of its
+    own."""
+    spans = _spans(records, name)
+    if within is not None:
+        outer = _spans(records, within)
+        spans = [s for s in spans if any(o.start <= s.start and s.end <= o.end for o in outer)]
+    cover = _Cover((s.start, s.end) for s in spans)
+    when = _launch_time(records)
+    return busy_us([(r.start, r.end) for r in _device(records) if when(r) in cover])
+
+
+def span_host_us(records, name: str, minus=()) -> float:
+    """The summed host time of spans ``name``, less the time that their
+    child spans (on the same thread) named in ``minus`` cover."""
+    children = [r for r in records if r.where == "host" and r.name in minus]
+    total = 0.0
+    for s in _spans(records, name):
+        inner = [(c.start, c.end) for c in children
+                 if c.thread == s.thread and s.start <= c.start and c.end <= s.end]
+        total += s.end - s.start - busy_us(inner)
+    return total
+
+
+def _puts_work(r) -> bool:
+    """A runtime call that puts work on the device: a kernel or graph
+    launch (:func:`_is_launch`), a memcpy or a memset."""
+    return _is_launch(r) or (r.kind == "runtime" and ("Memcpy" in r.name or "Memset" in r.name))
+
+
+def span_launch_calls(records, name: str) -> int:
+    """The runtime calls that put work on the device (kernel and graph
+    launches, memcpy and memset calls) starting inside host spans
+    ``name``, by time on any thread.  A graph launch is one call,
+    however many kernels it runs."""
+    cover = _Cover((s.start, s.end) for s in _spans(records, name))
+    return sum(1 for r in records if _puts_work(r) and r.start in cover)
+
+
+def idle_by_span(records, window, names=PROGRAM_SPANS) -> dict[str, float]:
+    """The device's idle time in ``window``, in us, summed by the
+    innermost span of ``names`` that was open when each gap began on the
+    thread that issued the record ending the gap; where that thread had
+    none open (autograd's thread between two recomputes, the gap up to
+    the window's end), the one opened last among those open on any
+    thread.  A gap outside every such span counts under :data:`OUTSIDE`.
+    The values sum to the window's idle time.  Gaps are device times set
+    against host spans, so they hold to within :func:`clock_lead_us`."""
+    dev = _device(records)
+    lo, hi = window
+    inside = sorted((r for r in dev if r.end > lo and r.start < hi), key=lambda r: r.start)
+    if not inside:
+        raise NoDeviceActivity(f"no device activity in the window {window}")
+    tree = _HostTree([r for r in records if r.name in names], kinds=("span",))
+    launcher = _launcher(records)
+    idle: dict[str, float] = collections.defaultdict(float)
+
+    def held(by, t):
+        s = tree.innermost_at(by.thread, t, kinds=("span",)) if by is not None else None
+        if s is None:
+            open_ = [tree.innermost_at(th, t, kinds=("span",)) for th in tree.by_thread]
+            s = max((x for x in open_ if x is not None), key=lambda x: x.start, default=None)
+        return s.name if s is not None else OUTSIDE
+
+    end = lo
+    for r in inside:
+        if r.start > end:
+            idle[held(launcher(r), end)] += r.start - end
+        end = max(end, r.end)
+    if hi > end:
+        idle[held(None, end)] += hi - end
+    return dict(idle)
 
 
 # ---------------------------------------------------------------------------

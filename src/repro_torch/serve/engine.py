@@ -73,6 +73,7 @@ from repro_torch.core import FutureEvaluator, LazyEvaluator, Stream, chunking
 from repro_torch.kernels import resolve_mode
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.roofline import trace as TR
 from repro_torch.serve import prng
 
 PyTree = Any
@@ -302,40 +303,49 @@ class _EngineBase:
         the rest, so that each piece divides into SSD chunks).  Samples the first token (ngen=0) and applies
         retirement to it: EOS, a budget of 1, or a prompt at the
         ``max_len`` boundary complete without occupying a batch slot.
-        Returns ``(single_cache, done)``.
+        Returns ``(single_cache, done)``.  Under ``torch.profiler`` it opens
+        the spans ``engine.prefill_cache``, ``engine.prefill_chunk`` (each
+        chunk), ``engine.prefill_wait`` and ``engine.prefill_draw``.
         """
         ck = self.scfg.prefill_chunk
         prompt = req.prompt
         plen = len(prompt)
         full = (plen // ck) * ck
-        single = T.init_cache(self.cfg, 1, self.scfg.max_len, self.device)
+        with TR.span(TR.PREFILL_CACHE):
+            single = T.init_cache(self.cfg, 1, self.scfg.max_len, self.device)
         logits = None
         for c in range(full // ck):
-            chunk = torch.as_tensor(prompt[None, c * ck : (c + 1) * ck], device=self.device)
-            logits, single = self._prefill(
-                self.params, single, tokens=chunk.long(), pos=c * ck
-            )
+            with TR.span(TR.PREFILL_CHUNK):
+                chunk = torch.as_tensor(prompt[None, c * ck : (c + 1) * ck], device=self.device)
+                logits, single = self._prefill(
+                    self.params, single, tokens=chunk.long(), pos=c * ck
+                )
         rem = plen - full
         if rem and self._ssm:
             cs = self.cfg.ssm.chunk_size
             cuts = [full, plen - rem % cs, plen] if rem > cs else [full, plen]
             for lo, hi in zip(cuts, cuts[1:]):
                 if hi > lo:
-                    piece = torch.as_tensor(prompt[None, lo:hi], device=self.device)
-                    logits, single = self._prefill(
-                        self.params, single, tokens=piece.long(), pos=lo
-                    )
+                    with TR.span(TR.PREFILL_CHUNK):
+                        piece = torch.as_tensor(prompt[None, lo:hi], device=self.device)
+                        logits, single = self._prefill(
+                            self.params, single, tokens=piece.long(), pos=lo
+                        )
         elif rem:
-            width = min(ck, self.scfg.max_len - full)
-            tail = np.zeros((1, width), np.int64)
-            tail[0, :rem] = prompt[full:]
-            logits, single = self._prefill(
-                self.params, single,
-                tokens=torch.as_tensor(tail, device=self.device), pos=full,
-                logits_at=rem - 1,
-            )
-        tok = int(sample_token(logits[0].cpu().numpy(), self.scfg.temperature,
-                               self.scfg.seed, req.uid, 0))
+            with TR.span(TR.PREFILL_CHUNK):
+                width = min(ck, self.scfg.max_len - full)
+                tail = np.zeros((1, width), np.int64)
+                tail[0, :rem] = prompt[full:]
+                logits, single = self._prefill(
+                    self.params, single,
+                    tokens=torch.as_tensor(tail, device=self.device), pos=full,
+                    logits_at=rem - 1,
+                )
+        with TR.span(TR.PREFILL_WAIT):
+            self._wait()
+        with TR.span(TR.PREFILL_DRAW):
+            tok = int(sample_token(logits[0].cpu().numpy(), self.scfg.temperature,
+                                   self.scfg.seed, req.uid, 0))
         req.out_tokens.append(tok)
         done = (
             len(req.out_tokens) >= req.max_new_tokens
@@ -343,6 +353,13 @@ class _EngineBase:
             or plen + 1 >= self.scfg.max_len
         )
         return single, done
+
+    def _wait(self) -> None:
+        """Wait for the current stream's work.  The copy of logits to the
+        host that follows would wait for it anyway; waiting first keeps
+        the wait out of the copy's span."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
 
 class Engine(_EngineBase):
@@ -366,55 +383,68 @@ class Engine(_EngineBase):
             if slot is None:
                 break
             req = self.queue.popleft()
-            single, done = self._prefill_single(req)
-            if done:
-                req.done = True
-                finished.append(req)
-                continue  # slot stays free for the next queued request
-            # Copy this request's cache rows into its batch slot, in place.
-            for name, blk in self.cache.items():
-                for key, leaf in blk.items():
-                    leaf[:, slot] = single[name][key][:, 0]
-            self.lengths[slot] = len(req.prompt)
-            self.active[slot] = req
+            with TR.span(TR.ENGINE_ADMIT):
+                single, done = self._prefill_single(req)
+                if done:
+                    req.done = True
+                    finished.append(req)
+                    continue  # slot stays free for the next queued request
+                # Copy this request's cache rows into its batch slot, in place.
+                with TR.span(TR.SLOT_COPY):
+                    for name, blk in self.cache.items():
+                        for key, leaf in blk.items():
+                            leaf[:, slot] = single[name][key][:, 0]
+                self.lengths[slot] = len(req.prompt)
+                self.active[slot] = req
         return finished
 
     def step(self) -> list[Request]:
-        """Admit, one batched decode step, retire. Returns newly finished."""
-        finished = self._expire_deadlines()
-        finished.extend(self._admit())
-        slots = [i for i, r in enumerate(self.active) if r is not None]
-        if not slots:
+        """Admit, one batched decode step, retire. Returns newly finished.
+
+        Under ``torch.profiler`` the step opens the spans that
+        :mod:`repro_torch.roofline.trace` names: ``engine.step`` around
+        it, ``engine.admit`` a request, ``engine.decode`` (the forward's
+        issue), ``engine.decode_wait`` and ``engine.draw`` (the logits'
+        copy and the host draw)."""
+        with TR.span(TR.ENGINE_STEP):
+            finished = self._expire_deadlines()
+            finished.extend(self._admit())
+            slots = [i for i, r in enumerate(self.active) if r is not None]
+            if not slots:
+                return finished
+            with TR.span(TR.DECODE):
+                # last token per active slot (prefill-sampled or last generated);
+                # inactive slots decode token 0 at their frozen length
+                tokens = np.zeros(self.scfg.max_batch, np.int64)
+                for i in slots:
+                    tokens[i] = self.active[i].out_tokens[-1]
+                logits, self.cache = self._decode(
+                    self.params, self.cache,
+                    tokens=torch.tensor(tokens, device=self.device),
+                    lengths=torch.tensor(self.lengths, device=self.device),
+                )
+            self.decode_steps += 1
+            with TR.span(TR.DECODE_WAIT):
+                self._wait()
+            with TR.span(TR.DRAW):
+                logits = logits.cpu().numpy()
+                # One batched draw over the active slots (as the reference's).
+                drawn = sample_token(
+                    logits[slots], self.scfg.temperature, self.scfg.seed,
+                    np.array([self.active[i].uid for i in slots], np.int32),
+                    np.array([len(self.active[i].out_tokens) for i in slots], np.int32),
+                )
+            for i, tok in zip(slots, drawn.tolist()):
+                req = self.active[i]
+                self.lengths[i] += 1
+                req.out_tokens.append(tok)
+                hit_eos = tok == self.scfg.eos_id
+                full = self.lengths[i] + 1 >= self.scfg.max_len
+                if len(req.out_tokens) >= req.max_new_tokens or hit_eos or full:
+                    req.done = True
+                    finished.append(req)
+                    self.active[i] = None
             return finished
-        # last token per active slot (prefill-sampled or last generated);
-        # inactive slots decode token 0 at their frozen length
-        tokens = np.zeros(self.scfg.max_batch, np.int64)
-        for i in slots:
-            tokens[i] = self.active[i].out_tokens[-1]
-        logits, self.cache = self._decode(
-            self.params, self.cache,
-            tokens=torch.tensor(tokens, device=self.device),
-            lengths=torch.tensor(self.lengths, device=self.device),
-        )
-        self.decode_steps += 1
-        logits = logits.cpu().numpy()
-        # One batched draw over the active slots (as the reference's).
-        drawn = sample_token(
-            logits[slots], self.scfg.temperature, self.scfg.seed,
-            np.array([self.active[i].uid for i in slots], np.int32),
-            np.array([len(self.active[i].out_tokens) for i in slots], np.int32),
-        )
-        for i, tok in zip(slots, drawn.tolist()):
-            req = self.active[i]
-            self.lengths[i] += 1
-            req.out_tokens.append(tok)
-            hit_eos = tok == self.scfg.eos_id
-            full = self.lengths[i] + 1 >= self.scfg.max_len
-            if len(req.out_tokens) >= req.max_new_tokens or hit_eos or full:
-                req.done = True
-                finished.append(req)
-                self.active[i] = None
-        return finished
 
 
 # ---------------------------------------------------------------------------

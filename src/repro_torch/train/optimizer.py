@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch import pytree as P
+from repro_torch.roofline import trace as TR
 
 PyTree = Any
 
@@ -89,7 +90,13 @@ def adamw_update(
     params: PyTree, grads: PyTree, opt_state: PyTree, cfg: AdamWConfig
 ) -> tuple[PyTree, PyTree, dict]:
     """One update; fp32 math, params/moments cast back to storage dtypes.
-    Functional: returns new trees and leaves the given ones as they were."""
+    Functional: returns new trees and leaves the given ones as they were.
+    Under ``torch.profiler`` it runs in a span ``train.optimizer``."""
+    with TR.span(TR.TRAIN_OPTIMIZER):
+        return _adamw_update(params, grads, opt_state, cfg)
+
+
+def _adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)

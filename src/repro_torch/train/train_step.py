@@ -27,6 +27,7 @@ from repro_torch.core.chunking import chunk_axis
 from repro_torch.kernels import KERNEL_MODES
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as SH
+from repro_torch.roofline import trace as TR
 from repro_torch.train import optimizer as O
 
 PyTree = Any
@@ -130,12 +131,16 @@ def value_and_grad(params, cfg: ArchConfig, batch: PyTree, tcfg: TrainConfig):
     """``((total, metrics), grads)`` of :func:`lm_loss` with respect to
     every parameter leaf (``jax.value_and_grad(lm_loss, has_aux=True)``):
     the leaves are taken as views that require grad, and the gradients
-    come in the parameters' dtypes."""
+    come in the parameters' dtypes.  Under ``torch.profiler`` the loss
+    runs in a span ``train.forward`` and the gradients in
+    ``train.backward``."""
     flat, treedef = P.flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
-        total, metrics = lm_loss(P.unflatten(treedef, leaves), cfg, batch, tcfg)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        with TR.span(TR.TRAIN_FORWARD):
+            total, metrics = lm_loss(P.unflatten(treedef, leaves), cfg, batch, tcfg)
+        with TR.span(TR.TRAIN_BACKWARD):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return (total.detach(), metrics), P.unflatten(treedef, grads)
 
@@ -221,11 +226,13 @@ def make_train_step(
     Sharded training: the parameters (and moments) are DTensors laid out
     by ``param_shardings``, ``param_pspecs`` their specs, and the step
     runs under ``sharding.set_mesh(mesh)``; plain tensors it meets (the
-    batch, positions, masks) count as replicated there."""
+    batch, positions, masks) count as replicated there.
+
+    Under ``torch.profiler`` a step runs in a span ``train.step``."""
     tcfg = dataclasses.replace(tcfg, kernels=resolve_train_kernels(tcfg))
 
     def train_step(params, opt_state, batch):
-        with SH.replicate_plain_tensors():
+        with TR.span(TR.TRAIN_STEP), SH.replicate_plain_tensors():
             grads, metrics = accumulate_grads(params, cfg, batch, tcfg, param_pspecs)
             params, opt_state, opt_metrics = O.adamw_update(
                 params, grads, opt_state, cfg=ocfg

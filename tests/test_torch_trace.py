@@ -423,3 +423,233 @@ def test_records_from_a_profile_without_activity_types(event):
     gaps = TR.longest_gaps(records, 10, window)
     assert gaps[0] == (pytest.approx(50), 0, "(python)")  # before the add, no op running
     assert gaps[1][2] == "(python)" and gaps[1][0] == pytest.approx(33)  # [62, 95]
+
+
+# ---------------------------------------------------------------------------
+# The program's spans and their readers
+# ---------------------------------------------------------------------------
+
+
+def _launch(t, corr, thread=1, name="cudaLaunchKernel"):
+    return host(name, t, t + 0.5, thread=thread, kind="runtime", corr=corr)
+
+
+def _train_trace():
+    """A train step on thread 1 with two layer groups in its forward,
+    their recompute on autograd's thread 2 inside the backward's
+    interval, and the optimizer; one kernel a launch (its device span in
+    brackets), the optimizer's running past its span's end, and one
+    launched after the step."""
+    spans = [host(TR.TRAIN_STEP, 0, 100, kind="span"),
+             host(TR.TRAIN_FORWARD, 0, 30, kind="span"),
+             host(TR.MODEL_GROUP, 2, 12, kind="span"),
+             host(TR.MODEL_GROUP, 14, 24, kind="span"),
+             host(TR.TRAIN_BACKWARD, 30, 80, kind="span"),
+             host(TR.MODEL_GROUP, 35, 45, thread=2, kind="span"),
+             host(TR.MODEL_GROUP, 55, 65, thread=2, kind="span"),
+             host(TR.TRAIN_OPTIMIZER, 80, 100, kind="span")]
+    work = [(5, 1, 6, 16), (16, 1, 17, 25), (27, 1, 28, 31),  # forward: groups, the loss
+            (36, 2, 37, 47), (50, 2, 50, 58), (56, 2, 58, 66),  # recompute, backward, recompute
+            (85, 1, 86, 104), (105, 1, 106, 110)]               # optimizer; after the step
+    records = list(spans)
+    for corr, (t, thread, a, b) in enumerate(work, 1):
+        records += [_launch(t, corr, thread), dev(f"kernel_{corr}", a, b, corr=corr)]
+    return records
+
+
+def test_span_device_us_by_launch_and_within():
+    records = _train_trace()
+    assert TR.span_device_us(records, TR.TRAIN_FORWARD) == pytest.approx(10 + 8 + 3)
+    assert TR.span_device_us(records, TR.TRAIN_BACKWARD) == pytest.approx(10 + 8 + 8)
+    assert TR.span_device_us(records, TR.TRAIN_OPTIMIZER) == pytest.approx(18)  # past its span
+    assert TR.span_device_us(records, TR.TRAIN_STEP) == pytest.approx(21 + 26 + 18)
+    # the groups: the forward's on thread 1 and their recompute on thread 2
+    assert TR.span_device_us(records, TR.MODEL_GROUP) == pytest.approx(10 + 8 + 10 + 8)
+    assert TR.span_device_us(records, TR.MODEL_GROUP, within=TR.TRAIN_BACKWARD) == pytest.approx(18)
+    assert TR.span_device_us(records, TR.MODEL_GROUP, within=TR.TRAIN_FORWARD) == pytest.approx(18)
+    with pytest.raises(ValueError, match="no host span"):
+        TR.span_device_us(records, TR.ENGINE_STEP)
+    with pytest.raises(ValueError, match="no host span"):
+        TR.span_device_us(records, TR.MODEL_GROUP, within=TR.ENGINE_STEP)
+    with pytest.raises(TR.NoDeviceActivity):
+        TR.span_device_us([r for r in records if r.where == "host"], TR.TRAIN_STEP)
+
+
+def test_span_host_us_less_child_spans():
+    """Two admissions on thread 1; a span on thread 2 that covers the
+    first is not its child."""
+    records = [host(TR.ENGINE_ADMIT, 0, 50, kind="span"),
+               host(TR.PREFILL_CACHE, 1, 3, kind="span"),
+               host(TR.PREFILL_CHUNK, 3, 20, kind="span"),
+               host(TR.PREFILL_CHUNK, 20, 30, kind="span"),
+               host(TR.PREFILL_WAIT, 30, 40, kind="span"),
+               host(TR.PREFILL_DRAW, 40, 45, kind="span"),
+               host(TR.SLOT_COPY, 45, 49, kind="span"),
+               host(TR.ENGINE_ADMIT, 60, 70, kind="span"),
+               host(TR.PREFILL_CHUNK, 61, 66, kind="span"),
+               host(TR.PREFILL_WAIT, 66, 67, kind="span"),
+               host(TR.PREFILL_CHUNK, 0, 50, thread=2, kind="span")]
+    assert TR.span_host_us(records, TR.ENGINE_ADMIT) == pytest.approx(60)
+    assert TR.span_host_us(records, TR.ENGINE_ADMIT, minus=(TR.PREFILL_CHUNK, TR.PREFILL_WAIT)) \
+        == pytest.approx((50 - 27 - 10) + (10 - 5 - 1))
+    assert TR.span_host_us(records, TR.PREFILL_CHUNK) == pytest.approx(17 + 10 + 5 + 50)
+    with pytest.raises(ValueError, match="no host span"):
+        TR.span_host_us(records, TR.DRAW)
+
+
+def test_span_launch_calls_count_a_graph_launch_once():
+    records = [host(TR.DECODE, 0, 10, kind="span"), host(TR.DECODE, 20, 30, kind="span"),
+               _launch(1, 1), _launch(2, 2, name="cudaMemcpyAsync"),
+               _launch(3, 3, name="cudaMemsetAsync"), _launch(4, 4, name="cudaGraphLaunch"),
+               _launch(5, 5, name="cudaLaunchHostFunc"), _launch(6, 6, name="cudaStreamSynchronize"),
+               _launch(15, 7), _launch(21, 8, thread=2, name="cuLaunchKernelEx")]
+    records += [dev("gemm_kernel", 4 + i, 5 + i, corr=4) for i in range(3)]  # the graph's kernels
+    assert TR.span_launch_calls(records, TR.DECODE) == 5
+    with pytest.raises(ValueError, match="no host span"):
+        TR.span_launch_calls(records, TR.DRAW)
+
+
+def test_idle_by_span_names_the_span_that_held_the_host():
+    """A decode step: the gaps fall in the step, its issue, its wait and
+    its draw, and after the step; each goes to the innermost program span
+    open on the issuing thread when it began (``profiled_step`` is not a
+    program span)."""
+    records = [host(TR.STEP_SPAN, 0, 105, kind="span"), host(TR.ENGINE_STEP, 0, 100, kind="span"),
+               host(TR.DECODE, 10, 40, kind="span"), host(TR.DECODE_WAIT, 40, 50, kind="span"),
+               host(TR.DRAW, 50, 90, kind="span"),
+               _launch(12, 1), dev("k1", 20, 30, corr=1), _launch(35, 2), dev("k2", 35, 45, corr=2),
+               _launch(51, 3, name="cudaMemcpyAsync"),
+               dev("Memcpy DtoH (Device -> Pageable)", 60, 70, kind="memcpy", corr=3),
+               _launch(102, 4), dev("k4", 104, 106, corr=4)]
+    idle = TR.idle_by_span(records, (0, 110))
+    assert idle == pytest.approx({TR.ENGINE_STEP: 20, TR.DECODE: 5, TR.DECODE_WAIT: 15,
+                                  TR.DRAW: 34, TR.OUTSIDE: 4})
+    assert sum(idle.values()) == pytest.approx(110 - TR.device_busy_us(records, (0, 110)))
+    # a gap ended by a launch from autograd's thread, which had no span
+    # open when it began, goes to the main thread's innermost span
+    idle = TR.idle_by_span(_train_trace(), (0, 110))
+    assert idle == pytest.approx({TR.TRAIN_FORWARD: 9, TR.MODEL_GROUP: 1, TR.TRAIN_BACKWARD: 29,
+                                  TR.OUTSIDE: 2})
+    # the same when autograd's thread holds most of the host records (the
+    # backward's ops), as on the card
+    ops = [host("aten::mul", 46 + 0.1 * i, 46.05 + 0.1 * i, thread=2) for i in range(20)]
+    assert TR.idle_by_span(_train_trace() + ops, (0, 110)) == idle
+    with pytest.raises(TR.NoDeviceActivity):
+        TR.idle_by_span(records, (200, 300))
+
+
+def _nested(records, inner, outer):
+    """Each span ``inner`` lies in a span ``outer`` on its thread."""
+    outs = [r for r in records if r.name == outer]
+    return all(any(o.thread == r.thread and o.start <= r.start and r.end <= o.end for o in outs)
+               for r in records if r.name == inner)
+
+
+def _inside(records, name, outer):
+    return [r for r in records if r.name == name
+            and any(o.start <= r.start and r.end <= o.end for o in records if o.name == outer)]
+
+
+def _smoke_engine(budgets=(1, 8, 8, 8, 8)):
+    """A smoke OLMo Engine on the CPU with 2 slots and five requests of
+    5, 19, 7, 11 and 9 tokens."""
+    cfg = smoke_config(get_config("olmo-1b")).with_overrides(num_layers=4)
+    params = T.Transformer(cfg, init_params(T.model_layout(cfg), seed=0, device="cpu")).params
+    scfg = ServeConfig(max_batch=2, max_len=64, prefill_chunk=8, max_new_tokens=8)
+    eng = Engine(params, cfg, scfg, device="cpu")
+    rng = np.random.default_rng(1)
+    for n, budget in zip((5, 19, 7, 11, 9), budgets):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n), budget)
+    return eng
+
+
+def test_engine_step_spans_nest_as_named():
+    """One profiled Engine step on the CPU that takes three requests from
+    the queue: the first completes at its first token (a budget of 1),
+    the next two fill the two slots.  One ``engine.admit`` each, holding
+    the one-slot cache, each chunk (5 tokens at chunk 8: the padded tail;
+    19: 8, 8 and the tail; 7: the tail), the wait and the draw, and the
+    slot copy where the request took a slot; then the decode's issue,
+    wait and draw, outside every admission."""
+    eng = _smoke_engine()
+    records = _cpu_records(eng.step)
+    assert eng.decode_steps == 1 and None not in eng.active
+    spans = sorted((r for r in records if r.name in TR.PROGRAM_SPANS), key=lambda r: r.start)
+    names = [r.name for r in spans]
+    admit = [TR.ENGINE_ADMIT, TR.PREFILL_CACHE]
+    end = [TR.PREFILL_WAIT, TR.PREFILL_DRAW]
+    assert names == ([TR.ENGINE_STEP]
+                     + admit + [TR.PREFILL_CHUNK] + end
+                     + admit + [TR.PREFILL_CHUNK] * 3 + end + [TR.SLOT_COPY]
+                     + admit + [TR.PREFILL_CHUNK] + end + [TR.SLOT_COPY]
+                     + [TR.DECODE, TR.DECODE_WAIT, TR.DRAW])
+    for inner in (TR.PREFILL_CACHE, TR.PREFILL_CHUNK, TR.PREFILL_WAIT, TR.PREFILL_DRAW,
+                  TR.SLOT_COPY):
+        assert _nested(records, inner, TR.ENGINE_ADMIT), inner
+    for inner in (TR.ENGINE_ADMIT, TR.DECODE, TR.DECODE_WAIT, TR.DRAW):
+        assert _nested(records, inner, TR.ENGINE_STEP), inner
+    for inner in (TR.DECODE, TR.DECODE_WAIT, TR.DRAW):
+        assert not _inside(records, inner, TR.ENGINE_ADMIT), inner
+    ops = [r._replace(name="op") for r in records if r.kind == "op"]
+    assert _inside(ops + spans, "op", TR.DECODE)  # the decode's issue holds the model's ops
+    # less its chunks and waits, an admission leaves the cache, the draw and the copy
+    rest = TR.span_host_us(records, TR.ENGINE_ADMIT, minus=(TR.PREFILL_CHUNK, TR.PREFILL_WAIT))
+    assert 0 < rest < TR.span_host_us(records, TR.ENGINE_ADMIT)
+
+
+def _train_case():
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = smoke_config(get_config("olmo-1b")).with_overrides(num_layers=4)
+    params = init_params(T.model_layout(cfg), seed=0, device="cpu")
+    ocfg = O.AdamWConfig()
+    step = make_train_step(cfg, TrainConfig(remat=True, attn_impl="chunked"), ocfg)
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16), generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 16), generator=g)}
+    return step, params, O.init_opt_state(params, ocfg), batch, T._num_groups(params)
+
+
+def test_train_step_spans_with_remat():
+    """``model.group`` fires once a group inside ``train.forward`` and
+    again, remat's recompute, inside ``train.backward``; the optimizer
+    runs after the backward, all inside ``train.step``."""
+    step, params, opt, batch, groups = _train_case()
+    assert groups > 1
+    records = _cpu_records(lambda: step(params, opt, batch))
+    for name in (TR.TRAIN_STEP, TR.TRAIN_FORWARD, TR.TRAIN_BACKWARD, TR.TRAIN_OPTIMIZER):
+        assert len([r for r in records if r.name == name]) == 1, name
+    for inner in (TR.TRAIN_FORWARD, TR.TRAIN_BACKWARD, TR.TRAIN_OPTIMIZER, TR.MODEL_GROUP):
+        assert _nested(records, inner, TR.TRAIN_STEP), inner
+    assert len(_inside(records, TR.MODEL_GROUP, TR.TRAIN_FORWARD)) == groups
+    assert len(_inside(records, TR.MODEL_GROUP, TR.TRAIN_BACKWARD)) == groups
+    fwd, bwd, opt_span = (next(r for r in records if r.name == n)
+                          for n in (TR.TRAIN_FORWARD, TR.TRAIN_BACKWARD, TR.TRAIN_OPTIMIZER))
+    assert fwd.end <= bwd.start and bwd.end <= opt_span.start
+
+
+def test_no_span_is_entered_without_a_profiler(monkeypatch):
+    """With no profiler running, an Engine run and a train step enter no
+    ``record_function`` (here made to raise), and give the tokens and
+    losses of the same runs under the profiler."""
+    def run():
+        eng = _smoke_engine()
+        done = eng.run_until_drained()
+        step, params, opt, batch, _ = _train_case()
+        _, _, metrics = step(params, opt, batch)
+        return {r.uid: r.out_tokens for r in done}, float(metrics["loss"])
+
+    traced = []
+    records = _cpu_records(lambda: traced.append(run()))
+    assert {TR.ENGINE_STEP, TR.TRAIN_STEP, TR.MODEL_GROUP} <= {r.name for r in records}
+
+    def refuse(*args, **kw):
+        raise AssertionError("record_function entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert TR.span(TR.ENGINE_STEP) is TR.span(TR.TRAIN_STEP)  # one shared no-op
+    tokens, loss = run()
+    assert tokens == traced[0][0] and len(tokens) == 5
+    assert loss == traced[0][1]
