@@ -815,7 +815,7 @@ def run_engine(cfg, params, label, want, **serve):
         def call(*args, **kw):
             t = time.perf_counter()
             out = fn(*args, **kw)
-            torch.cuda.synchronize()  # the engine reads the logits on the host next anyway
+            torch.cuda.synchronize()  # the engine waits for the stream before its draw anyway
             spent[name].append(time.perf_counter() - t)
             return out
 
@@ -3632,7 +3632,7 @@ def run_trace_engine(cfg, params, label, smi, steps, want) -> None:
     for _ in range(min(steps, 8)):  # the 8 slots' 31 decode steps hold 1 + 8 + 16
         t = time.perf_counter()
         eng.step()
-        unprofiled.append(time.perf_counter() - t)  # ends in the logits' copy to the host
+        unprofiled.append(time.perf_counter() - t)  # ends in the tokens' copy to the host
     kv_len = []
 
     def step(_):

@@ -82,11 +82,11 @@ ENGINE_ADMIT = "engine.admit"             #   one request taken from the queue
 PREFILL_CACHE = "engine.prefill_cache"    #     the one-slot cache's allocation
 PREFILL_CHUNK = "engine.prefill_chunk"    #     each prefill chunk's issue
 PREFILL_WAIT = "engine.prefill_wait"      #     the wait for the stream before the draw
-PREFILL_DRAW = "engine.prefill_draw"      #     the first token's logits to the host, its draw
+PREFILL_DRAW = "engine.prefill_draw"      #     the first token's draw on the device, its id to the host
 SLOT_COPY = "engine.slot_copy"            #     the one-slot cache into its batch slot
 DECODE = "engine.decode"                  #   the decode step's issue
 DECODE_WAIT = "engine.decode_wait"        #   the wait for the stream before the draw
-DRAW = "engine.draw"                      #   the logits to the host, the batched draw
+DRAW = "engine.draw"                      #   the batched draw on the device, the ids to the host
 TRAIN_STEP = "train.step"                 # make_train_step's step
 TRAIN_FORWARD = "train.forward"           #   lm_loss, once a micro-batch
 TRAIN_BACKWARD = "train.backward"         #   torch.autograd.grad (remat's recompute inside)

@@ -43,9 +43,11 @@ Common to both:
     the reference's Gumbel-max draw under the key
     ``fold_in(fold_in(PRNGKey(seed), uid), ngen)`` (:mod:`.prng`, the
     ``jax.random`` generator rebuilt in numpy and on tensors), so a
-    request's tokens depend on (seed, uid, token index) only.  The
-    ``Engine`` and every prefill draw on the host (:func:`sample_token`),
-    the ``StreamEngine``'s emit on the device (:func:`sample_token_t`).
+    request's tokens depend on (seed, uid, token index) only.  Every
+    draw runs where the logits are: the ``Engine``'s step and every
+    prefill hand the logits tensor to :func:`sample_token` and copy only
+    the token ids to the host, and the ``StreamEngine``'s emit draws with
+    :func:`sample_token_t` inside its round.
 
 Request lifecycle: bounded admission (``max_queue`` ->
 :class:`QueueFullError`), per-request deadlines, ``cancel(uid)``, and
@@ -120,7 +122,7 @@ class Request:
 
 
 def sample_token(logits, temperature: float, seed: int, uid, ngen):
-    """Sample the next token from host logits ``(V,)`` or ``(B, V)``.
+    """Sample the next token from logits ``(V,)`` or ``(B, V)``.
 
     Greedy (``temperature <= 0``) is an argmax with first-max
     tie-breaking, as ``jnp.argmax``.  Temperature sampling draws
@@ -129,7 +131,16 @@ def sample_token(logits, temperature: float, seed: int, uid, ngen):
     ``jax.random.categorical`` does; a batch takes per-row ``uid`` and
     ``ngen`` and gives what each row drawn alone gives.  The logits must
     be fp32, as the reference's are at its sampler.
+
+    Host logits (a numpy array) draw on the host and give int32 numpy
+    ids.  A tensor draws on its device (:func:`sample_token_t`) and gives
+    an int32 tensor there; ``uid`` and ``ngen`` go to that device only
+    under a temperature, since greedy needs no key.
     """
+    if isinstance(logits, torch.Tensor):
+        if temperature > 0:
+            uid, ngen = (torch.as_tensor(np.asarray(a), device=logits.device) for a in (uid, ngen))
+        return sample_token_t(logits, temperature, seed, uid, ngen)
     logits = np.asarray(logits)
     if temperature <= 0:
         return np.argmax(logits, axis=-1).astype(np.int32)
@@ -143,17 +154,21 @@ def sample_token(logits, temperature: float, seed: int, uid, ngen):
 
 def sample_token_t(logits: torch.Tensor, temperature: float, seed: int,
                    uid: torch.Tensor, ngen: torch.Tensor) -> torch.Tensor:
-    """:func:`sample_token` on a batch of fp32 logits ``(B, V)`` on their
-    device: int32 ``(B,)``, with no host sync.  Greedy takes the first
-    maximum (``torch.argmax``, as ``jnp.argmax``); at a temperature each
-    row draws under its own ``(uid, ngen)`` key, dividing by the
+    """:func:`sample_token` on fp32 logits ``(V,)`` or ``(B, V)`` on their
+    device: int32 ``()`` or ``(B,)``, with no host sync.  Greedy takes the
+    first maximum (``torch.argmax``, as ``jnp.argmax``); at a temperature
+    each row draws under its own ``(uid, ngen)`` key, dividing by the
     temperature as a tensor (a true division, as numpy's)."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if logits.dtype != torch.float32:
         raise TypeError(f"temperature sampling takes fp32 logits, got {logits.dtype}")
+    key = prng.request_key_t(seed, uid, ngen)
+    if key.shape[:-1] != logits.shape[:-1]:
+        raise ValueError(f"one (uid, ngen) per row: keys {tuple(key.shape[:-1])}, "
+                         f"logits {tuple(logits.shape)}")
     t = torch.full((), temperature, dtype=torch.float32, device=logits.device)
-    return prng.categorical_t(prng.request_key_t(seed, uid, ngen), logits / t)
+    return prng.categorical_t(key, logits / t)
 
 
 class _EngineBase:
@@ -344,8 +359,8 @@ class _EngineBase:
         with TR.span(TR.PREFILL_WAIT):
             self._wait()
         with TR.span(TR.PREFILL_DRAW):
-            tok = int(sample_token(logits[0].cpu().numpy(), self.scfg.temperature,
-                                   self.scfg.seed, req.uid, 0))
+            tok = int(sample_token(logits[0], self.scfg.temperature, self.scfg.seed,
+                                   req.uid, 0))
         req.out_tokens.append(tok)
         done = (
             len(req.out_tokens) >= req.max_new_tokens
@@ -355,9 +370,9 @@ class _EngineBase:
         return single, done
 
     def _wait(self) -> None:
-        """Wait for the current stream's work.  The copy of logits to the
-        host that follows would wait for it anyway; waiting first keeps
-        the wait out of the copy's span."""
+        """Wait for the current stream's work.  The draw's copy of the
+        tokens to the host that follows would wait for it anyway; waiting
+        first keeps the wait out of the draw's span."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
@@ -404,8 +419,9 @@ class Engine(_EngineBase):
         Under ``torch.profiler`` the step opens the spans that
         :mod:`repro_torch.roofline.trace` names: ``engine.step`` around
         it, ``engine.admit`` a request, ``engine.decode`` (the forward's
-        issue), ``engine.decode_wait`` and ``engine.draw`` (the logits'
-        copy and the host draw)."""
+        issue), ``engine.decode_wait`` and ``engine.draw`` (the draw on the
+        logits' device over every slot, and the copy of the ``max_batch``
+        token ids to the host)."""
         with TR.span(TR.ENGINE_STEP):
             finished = self._expire_deadlines()
             finished.extend(self._admit())
@@ -427,14 +443,18 @@ class Engine(_EngineBase):
             with TR.span(TR.DECODE_WAIT):
                 self._wait()
             with TR.span(TR.DRAW):
-                logits = logits.cpu().numpy()
-                # One batched draw over the active slots (as the reference's).
-                drawn = sample_token(
-                    logits[slots], self.scfg.temperature, self.scfg.seed,
-                    np.array([self.active[i].uid for i in slots], np.int32),
-                    np.array([len(self.active[i].out_tokens) for i in slots], np.int32),
-                )
-            for i, tok in zip(slots, drawn.tolist()):
+                # One batched draw over every slot: a row's token depends on
+                # its own logits and key only, so the inactive slots' draws
+                # (under uid 0, ngen 0) leave the active ones' as the
+                # reference's draw over the active rows gives them.
+                uids = np.zeros(self.scfg.max_batch, np.int32)
+                ngens = np.zeros(self.scfg.max_batch, np.int32)
+                for i in slots:
+                    uids[i], ngens[i] = self.active[i].uid, len(self.active[i].out_tokens)
+                drawn = sample_token(logits, self.scfg.temperature, self.scfg.seed,
+                                     uids, ngens).tolist()
+            for i in slots:
+                tok = drawn[i]
                 req = self.active[i]
                 self.lengths[i] += 1
                 req.out_tokens.append(tok)

@@ -890,6 +890,93 @@ def test_sample_token_on_card_logits_equals_cpu_draw():
     assert K.LAUNCHES["emit_norm_logits"] == 1
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "t0.9"])
+def test_engine_draws_on_the_card_and_copies_back_only_the_ids(temperature, tmp_path):
+    """The narrow OLMo (kernels="cuda") served by the ``Engine`` at B 64:
+    every token it appends is the host draw of the logits behind it (a
+    decode step's active rows, an admission's last prefill row; greedy
+    with a maximum planted twice in two rows), and under torch.profiler
+    a decoding step copies at most 4 B bytes, the int32 ids, from the
+    card to the host."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.serve.engine import Engine, ServeConfig, sample_token
+
+    cfg, params = _serving_model("olmo-1b")
+    b = 64
+    scfg = ServeConfig(max_batch=b, max_len=128, prefill_chunk=16, max_new_tokens=12,
+                       temperature=temperature, seed=11)
+    rng = np.random.default_rng(8)
+
+    eng = Engine(params, cfg, scfg, device="cuda")
+    prefill, decode, single = eng._prefill, eng._decode, eng._prefill_single
+    last, drawn = {}, []
+
+    def planted(logits):
+        if temperature > 0:
+            return logits
+        logits = logits.clone()
+        rows = logits.view(-1, logits.shape[-1])
+        for r, at in ((0, 0), (rows.shape[0] - 1, rows.shape[1] - 1)):
+            rows[r, at] = rows[r].max()
+        return logits
+
+    def kept_prefill(*args, **kw):
+        logits, cache = prefill(*args, **kw)
+        last["prefill"] = planted(logits)
+        return last["prefill"], cache
+
+    def kept_decode(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        logits = planted(logits)
+        slots = [i for i, r in enumerate(eng.active) if r is not None]
+        reqs = [eng.active[i] for i in slots]
+        ngens = np.array([len(r.out_tokens) for r in reqs], np.int32)
+        host = sample_token(logits.cpu().numpy()[slots], temperature, 11,
+                            np.array([r.uid for r in reqs], np.int32), ngens)
+        drawn.extend(zip(reqs, ngens.tolist(), host.tolist()))
+        return logits, cache
+
+    def checked_single(req):
+        out = single(req)
+        host = sample_token(last["prefill"].cpu().numpy()[0], temperature, 11, req.uid, 0)
+        drawn.append((req, 0, int(host)))
+        return out
+
+    eng._prefill, eng._decode, eng._prefill_single = kept_prefill, kept_decode, checked_single
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, size=int(n)), int(k))
+            for n, k in zip(rng.integers(1, 40, size=96), rng.integers(1, 13, size=96))]
+    eng.run_until_drained()
+    assert all(r.done and r.status == "ok" for r in reqs)
+    assert len(drawn) == sum(len(r.out_tokens) for r in reqs) and eng.decode_steps > 0
+    assert all(req.out_tokens[k] == tok for req, k, tok in drawn)
+
+    # a steady decoding step under the profiler: every slot active, no admission
+    eng = Engine(params, cfg, scfg, device="cuda")
+    for _ in range(b):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=20), 12)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    steps = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda._sleep(1_000_000)  # the warm-up phase, whose events are dropped
+        torch.cuda.synchronize()
+        prof.step()
+        eng.step()
+        torch.cuda.synchronize()
+    assert eng.decode_steps == steps + 1 and None not in eng.active
+    path = tmp_path / "step.json"
+    prof.export_chrome_trace(str(path))
+    copies = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    moved = sum(int(e["args"]["bytes"]) for e in copies)
+    assert copies and 0 < moved <= 4 * b, [(e["name"], e["args"].get("bytes")) for e in copies]
+
+
 # ---------------------------------------------------------------------------
 # The FutureEvaluator on stage streams, and the StreamEngine's rounds
 # ---------------------------------------------------------------------------

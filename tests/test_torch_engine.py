@@ -271,3 +271,60 @@ def test_temperature_sampling_not_ported(small_model):
     assert batched.tolist() == [int(sample_token(lg[i], 0.7, 3, i, g))
                                 for i, g in enumerate([4, 0, 1])]
     assert int(sample_token(np.array([0.0, 2.0, 2.0, 1.0]), 0.0, 0, 0, 0)) == 1
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9, 1.1])
+def test_every_draw_equals_the_host_draw_of_its_logits(small_model, temperature):
+    """The Engine draws on the logits' device.  Each token it appends is
+    the host draw (``sample_token`` on numpy) of the logits behind it: a
+    decode step's over its active rows, an admission's first token over
+    the last prefill logits.  Greedy runs with a maximum planted twice in
+    some rows of every logits tensor, so first-max tie-breaking decides
+    them."""
+    eng = _engine(small_model, max_batch=3, max_new_tokens=5, temperature=temperature,
+                  seed=11)
+    prefill, decode, single = eng._prefill, eng._decode, eng._prefill_single
+    last = {}
+    drawn = []  # (request, token index, the host's token)
+
+    def planted(logits):
+        if temperature > 0:
+            return logits
+        logits = logits.clone()
+        rows = logits.view(-1, logits.shape[-1])
+        for r, at in ((0, 0), (rows.shape[0] - 1, rows.shape[1] - 1)):
+            rows[r, at] = rows[r].max()
+        return logits
+
+    def kept_prefill(*args, **kw):
+        logits, cache = prefill(*args, **kw)
+        last["prefill"] = planted(logits)
+        return last["prefill"], cache
+
+    def kept_decode(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        logits = planted(logits)
+        slots = [i for i, r in enumerate(eng.active) if r is not None]
+        reqs = [eng.active[i] for i in slots]
+        ngens = np.array([len(r.out_tokens) for r in reqs], np.int32)
+        host = sample_token(logits.numpy()[slots], temperature, 11,
+                            np.array([r.uid for r in reqs], np.int32), ngens)
+        drawn.extend(zip(reqs, ngens.tolist(), host.tolist()))
+        return logits, cache
+
+    def checked_single(req):
+        out = single(req)
+        host = sample_token(last["prefill"].numpy()[0], temperature, 11, req.uid, 0)
+        assert req.out_tokens == [int(host)]
+        drawn.append((req, 0, int(host)))
+        return out
+
+    eng._prefill, eng._decode, eng._prefill_single = kept_prefill, kept_decode, checked_single
+    rng = np.random.default_rng(3)
+    reqs = [eng.submit(rng.integers(1, 512, size=n), b)
+            for n, b in ((5, 5), (3, 1), (9, 4), (2, 5), (7, 3), (4, 2))]
+    eng.run_until_drained()
+    assert all(r.done and r.status == "ok" for r in reqs)
+    assert len(drawn) == sum(len(r.out_tokens) for r in reqs) and eng.decode_steps > 0
+    for req, k, tok in drawn:
+        assert req.out_tokens[k] == tok, (req.uid, k)

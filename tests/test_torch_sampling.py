@@ -23,7 +23,9 @@ from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.engine import sample_token as jax_sample_token
 from repro_torch.configs.registry import get_config, smoke_config
-from repro_torch.models.params import params_from_numpy
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_params, params_from_numpy
+from repro_torch.serve import engine as E
 from repro_torch.serve import prng
 from repro_torch.serve.engine import Engine, ServeConfig, sample_token
 
@@ -118,6 +120,10 @@ def test_sample_token_one_row(temperature, v):
         want = jax_sample_token(lg[row], temperature, 11, uid, ngen)
         assert got.dtype == np.int32 and got.shape == ()
         assert int(got) == int(want), (row, uid, ngen)
+        # a tensor draws the same token on its device
+        on_device = sample_token(torch.as_tensor(lg[row]), temperature, 11, uid, ngen)
+        assert on_device.dtype == torch.int32 and on_device.shape == ()
+        assert int(on_device) == int(got), (row, uid, ngen)
 
 
 @pytest.mark.parametrize("v", [512, 50304])
@@ -132,15 +138,78 @@ def test_sample_token_batched(temperature, v):
     rows = [int(sample_token(lg[i], temperature, 11, int(u), int(g)))
             for i, (u, g) in enumerate(zip(uids, ngens))]
     np.testing.assert_array_equal(got, rows)
+    # a tensor draws the same tokens on its device
+    on_device = sample_token(torch.as_tensor(lg), temperature, 11, uids, ngens)
+    assert on_device.dtype == torch.int32 and on_device.shape == (8,)
+    np.testing.assert_array_equal(on_device.numpy(), got)
 
 
 def test_sample_token_checks_its_inputs():
-    with pytest.raises(TypeError, match="fp32"):
-        sample_token(np.zeros(4, np.float64), 0.9, 0, 0, 0)
-    with pytest.raises(ValueError, match="one"):
-        sample_token(np.zeros((3, 4), np.float32), 0.9, 0, np.arange(2), np.arange(2))
-    # greedy keeps first-max tie-breaking and takes any dtype
-    assert int(sample_token(np.array([0.0, 2.0, 2.0, 1.0]), 0.0, 0, 0, 0)) == 1
+    for as_input in (np.asarray, torch.as_tensor):
+        with pytest.raises(TypeError, match="fp32"):
+            sample_token(as_input(np.zeros(4, np.float64)), 0.9, 0, 0, 0)
+        with pytest.raises(ValueError, match="one"):
+            sample_token(as_input(np.zeros((3, 4), np.float32)), 0.9, 0, np.arange(2),
+                         np.arange(2))
+        with pytest.raises(ValueError, match="one"):
+            sample_token(as_input(np.zeros((3, 4), np.float32)), 0.9, 0, 0, 0)
+        # greedy keeps first-max tie-breaking and takes any dtype
+        assert int(sample_token(as_input(np.array([0.0, 2.0, 2.0, 1.0])), 0.0, 0, 0, 0)) == 1
+
+
+@pytest.mark.parametrize("v", [512, 50304])
+@pytest.mark.parametrize("batch", [None, 8], ids=["row", "batch"])
+def test_sample_token_greedy_on_a_tensor_equals_numpy(batch, v):
+    """Greedy over a tensor, ``(V,)`` or ``(B, V)``, is the host argmax
+    with its first-max tie-breaking: rows with a maximum planted twice,
+    before and after the row's own maximum, take the first."""
+    lg = _logits(8, v, 3)
+    for row, at in ((1, 0), (4, v - 1), (6, 17)):
+        lg[row, at] = lg[row].max()
+    lg = lg if batch else lg[4]
+    got = sample_token(torch.as_tensor(lg), 0.0, 11, None, None)
+    want = sample_token(lg, 0.0, 11, None, None)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if batch:
+        assert want[1] == 0  # the maximum planted first
+
+
+# ---------------------------------------------------------------------------
+# Where the Engine draws: every draw hands sample_token the logits tensor
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "t0.9"])
+def test_the_engine_hands_the_draw_a_tensor(monkeypatch, temperature):
+    """Every call that ``Engine.step`` and ``_prefill_single`` make to the
+    module's ``sample_token`` passes the logits as a tensor on the
+    engine's device, a row ``(V,)`` for an admission and ``(B, V)`` over
+    every slot for a decode step, and gets int32 token ids back."""
+    cfg = smoke_config(get_config("olmo-1b")).with_overrides(num_layers=2,
+                                                                dtype=torch.float32)
+    params = init_params(T.model_layout(cfg), seed=0, device="cpu")
+    eng = Engine(params, cfg, ServeConfig(max_batch=3, max_len=64, prefill_chunk=4,
+                                          max_new_tokens=5, temperature=temperature,
+                                          seed=11), device="cpu")
+    calls = []
+    draw = E.sample_token
+
+    def checked(logits, *args):
+        assert isinstance(logits, torch.Tensor) and logits.device == eng.device
+        tok = draw(logits, *args)
+        assert isinstance(tok, torch.Tensor) and tok.dtype == torch.int32
+        assert tok.shape == logits.shape[:-1]
+        calls.append(tuple(logits.shape))
+        return tok
+
+    monkeypatch.setattr(E, "sample_token", checked)
+    rng = np.random.default_rng(5)
+    for n, budget in ((3, 5), (6, 1), (9, 4), (2, 3), (5, 5)):
+        eng.submit(rng.integers(1, 512, size=n), budget)
+    eng.run_until_drained()
+    v = cfg.vocab_size
+    assert calls.count((v,)) == 5 and calls.count((3, v)) == eng.decode_steps > 0
 
 
 # ---------------------------------------------------------------------------
